@@ -1,0 +1,84 @@
+"""VoteSegmentor inference (port of ``models/segmentor.py``): voxelize →
+VFE → sparse UNet → voxel-to-point neck (``SegmentorCore``), then the
+per-point head emitting (C+1)-way logits and sqrt-encoded center votes
+(``VoteSegHead``)."""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from ..config import Capacities, VoteSegmentorConfig
+from ..ops.sparse_conv import SparseTensor
+from ..ops.voxelize import grid_dims, voxelize_points
+from ..utils.containers import PointBatch
+from .layers import MLP
+from .sparse_unet import SparseUNet
+from .vfe import DynamicScatterVFE
+
+
+def decode_vote_targets(preds: torch.Tensor) -> torch.Tensor:
+    return preds * preds.abs()
+
+
+class SegmentorCore(nn.Module):
+    """voxelize → VFE → sparse UNet → voxel2point neck → per-point features."""
+
+    def __init__(self, cfg: VoteSegmentorConfig, caps: Capacities):
+        super().__init__()
+        self.cfg = cfg
+        self.caps = caps
+        c = cfg
+        self.DynamicScatterVFE_0 = DynamicScatterVFE(
+            c.point_dim, tuple(c.vfe_channels), c.voxel_size, tuple(c.point_cloud_range[:3]))
+        self.SparseUNet_0 = SparseUNet(
+            c.vfe_channels[-1], caps.voxels,
+            base_channels=c.unet_base_channels,
+            output_channels=c.unet_output_channels,
+            encoder_channels=c.unet_encoder_channels,
+            encoder_strided_paddings=c.unet_strided_paddings,
+            decoder_channels=c.unet_decoder_channels,
+            stage_capacity_divisors=c.unet_capacity_divisors,
+            stage_capacities=c.unet_stage_capacities,
+            dense_min_occupancy=c.unet_dense_min_occupancy,
+        )
+        self.feat_dim = c.unet_output_channels + 3
+
+    def forward(self, pb: PointBatch, batch_size: int):
+        c = self.cfg
+        xyz = pb.xyz
+        seg, _, vox_batch, vox_coords = voxelize_points(
+            xyz, pb.batch_idx, pb.valid, c.voxel_size, c.point_cloud_range, self.caps.voxels)
+        pt_valid = pb.valid & (seg.seg_id < self.caps.voxels)
+        voxel_feats = self.DynamicScatterVFE_0(pb.points, seg, vox_coords, pt_valid)
+        st = SparseTensor(feats=voxel_feats, coords=vox_coords, batch=vox_batch,
+                          valid=seg.seg_valid, dims=grid_dims(c.voxel_size, c.point_cloud_range),
+                          batch_size=batch_size)
+        unet_out = self.SparseUNet_0(st)
+        sid = seg.seg_id.clamp(0, self.caps.voxels - 1).long()
+        vs = torch.tensor(c.voxel_size, dtype=xyz.dtype, device=xyz.device)
+        lo = torch.tensor(c.point_cloud_range[:3], dtype=xyz.dtype, device=xyz.device)
+        centers = vox_coords.to(xyz.dtype) * vs + vs * 0.5 + lo
+        seg_feats = torch.cat([unet_out[sid], xyz - centers[sid]], dim=1)
+        return seg_feats * pt_valid[:, None].to(seg_feats.dtype), pt_valid
+
+
+class VoteSegHead(nn.Module):
+    """Per-point MLP head → (C+1)-way logits + per-class center votes."""
+
+    def __init__(self, cfg: VoteSegmentorConfig, in_dim: int):
+        super().__init__()
+        n_out = cfg.num_classes + 1
+        self.MLP_0 = MLP(in_dim, tuple(cfg.head_hidden_dims), norm="bn", act="relu")
+        self.Dense_0 = nn.Linear(cfg.head_hidden_dims[-1], n_out)
+        self.Dense_1 = nn.Linear(cfg.head_hidden_dims[-1], n_out * 3)
+
+    def forward(self, seg_feats, valid):
+        hidden = self.MLP_0(seg_feats, valid)
+        vote_preds = self.Dense_1(hidden)
+        return dict(
+            seg_feats=seg_feats,
+            seg_logits=self.Dense_0(hidden),
+            vote_preds=vote_preds,
+            offsets=decode_vote_targets(vote_preds),
+            valid=valid,
+        )

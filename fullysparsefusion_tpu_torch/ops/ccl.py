@@ -1,0 +1,81 @@
+"""Connected components over a BEV distance graph (port of ``ops/ccl.py``).
+
+Two nodes connect iff both are valid, share a batch id and their xy
+distance is below the threshold. Labels are compact and ordered by each
+component's minimum node index. :func:`ccl_roots` is the K2 kernel's
+wrapper: CUDA tensors launch ``csrc/ccl.cu``, CPU tensors run
+:func:`ccl_roots_plain`; the compact relabelling stays in torch.
+"""
+from __future__ import annotations
+
+import torch
+
+from .. import kernels
+from .segment import unique_segments
+
+
+def ccl_roots_plain(xy: torch.Tensor, batch: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """Plain version of :func:`ccl_roots`: dense [G, N, N] adjacency, then
+    min-label propagation with pointer jumping until nothing changes."""
+    g, n = valid.shape
+    d2 = ((xy[:, :, None, :] - xy[:, None, :, :]) ** 2).sum(-1)
+    adj = (d2 < 1.0) & (batch[:, :, None] == batch[:, None, :]) \
+        & valid[:, :, None] & valid[:, None, :]
+    adj |= torch.eye(n, dtype=torch.bool, device=xy.device)[None] & valid[:, :, None]
+    big = torch.tensor(n, dtype=torch.int64, device=xy.device)
+    ar = torch.arange(n, device=xy.device).expand(g, n)
+    labels = torch.where(valid, ar, big)
+    while True:
+        new = torch.where(adj, labels[:, None, :], big).amin(dim=2)
+        new = torch.minimum(new, labels)
+        jumped = torch.gather(labels, 1, new.clamp(max=n - 1))
+        new = torch.where(new < big, torch.minimum(new, jumped), big)
+        if torch.equal(new, labels):
+            break
+        labels = new
+    return torch.where(valid, labels, torch.full_like(labels, -1)).to(torch.int32)
+
+
+def ccl_roots(xy: torch.Tensor, batch: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """Per problem g and node i, the minimum node index reachable from i
+    over the graph "dx² + dy² < 1, same batch, both valid" (plus self
+    loops), or -1 for an invalid node → [G, N] i32.
+
+    xy [G, N, 2] f32 (pre-scaled so the threshold is 1), batch [G, N] i32
+    (≥ 0), valid [G, N] bool.
+    """
+    if xy.dtype != torch.float32 or batch.dtype != torch.int32 or valid.dtype != torch.bool:
+        raise TypeError("ccl_roots takes f32 xy, int32 batch, bool valid")
+    if xy.dim() != 3 or xy.shape[2] != 2 or batch.shape != xy.shape[:2] \
+            or valid.shape != xy.shape[:2]:
+        raise ValueError("ccl_roots: xy [G, N, 2], batch and valid [G, N]")
+    if xy.device.type == "cpu":
+        return ccl_roots_plain(xy, batch, valid)
+    if xy.device.type != "cuda" or batch.device != xy.device or valid.device != xy.device:
+        raise ValueError("ccl_roots: all tensors on one CUDA device (or the CPU)")
+    g, n = valid.shape
+    if n > 8192:
+        raise ValueError(f"ccl_roots kernel holds N ≤ 8192 nodes in shared memory, got {n}")
+    if not (xy.is_contiguous() and batch.is_contiguous() and valid.is_contiguous()):
+        raise ValueError("ccl_roots: inputs must be contiguous")
+    roots = torch.empty(g, n, dtype=torch.int32, device=xy.device)
+    kernels.launch("ccl", xy.data_ptr(), batch.data_ptr(), valid.data_ptr(), g, n,
+                   roots.data_ptr(), torch.cuda.current_stream(xy.device).cuda_stream)
+    ccl_roots.launches += 1
+    return roots
+
+
+ccl_roots.launches = 0
+
+
+def connected_components_bev_batched(xy: torch.Tensor, batch_idx: torch.Tensor,
+                                     valid: torch.Tensor) -> torch.Tensor:
+    """Compact labels [G, N] (-1 invalid) for G independent problems whose
+    coordinates are pre-scaled so connectivity is ``dist < 1``."""
+    roots = ccl_roots(xy.contiguous(), batch_idx.to(torch.int32).contiguous(),
+                      valid.contiguous())
+    out = []
+    for lab, v in zip(roots, valid):
+        seg = unique_segments(lab, v, lab.shape[0])
+        out.append(torch.where(v, seg.seg_id, torch.full_like(seg.seg_id, -1)))
+    return torch.stack(out)

@@ -1,0 +1,317 @@
+"""Sparse 3D convolution: active voxels in a fixed-capacity ``SparseTensor``,
+rulebooks of per-tap source rows, and the gather convolution that sums
+``feats[rows[k]] @ w[k]`` over the 27 taps (port of ``ops/sparse_conv.py``,
+inference only).
+
+Weight layout ``w[kz*K*K + ky*K + kx, Cin, Cout]``, cross-correlation:
+``out[p] = Σ_k in[p·s − pad + k] @ w[k]``. Rulebook rows are ``[27, n_out]``
+int32 with a miss pointing at ``n_src`` (the zero row). Any exact lookup
+gives the JAX package's rows, because active sets hold unique coordinates;
+here it is one ``searchsorted`` over the sorted active keys.
+
+:func:`gather_conv` is the K1 kernel's wrapper: CUDA tensors launch
+``csrc/gather_conv.cu``, CPU tensors run :func:`gather_conv_plain`.
+"""
+from __future__ import annotations
+
+import itertools
+from dataclasses import dataclass, replace
+from typing import Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from .. import kernels
+from .segment import INVALID_KEY, unique_keys_sorted
+from .voxelize import linearize_coords
+
+_KEY_SENTINEL = torch.iinfo(torch.int64).max
+
+
+@dataclass
+class SparseTensor:
+    """Fixed-capacity active-voxel set; coords (x, y, z) int32 in [0, dims),
+    invalid rows carry arbitrary coords and are masked by ``valid``."""
+
+    feats: torch.Tensor   # [cap, C]
+    coords: torch.Tensor  # [cap, 3] i32
+    batch: torch.Tensor   # [cap] i32
+    valid: torch.Tensor   # [cap] bool
+    dims: Tuple[int, int, int]
+    batch_size: int = 0
+
+    @property
+    def capacity(self) -> int:
+        return self.feats.shape[0]
+
+    def replace(self, **kw) -> "SparseTensor":
+        return replace(self, **kw)
+
+
+# ---------------------------------------------------------------------------
+# K1: the gather convolution
+# ---------------------------------------------------------------------------
+
+
+def gather_conv_plain(feats: torch.Tensor, rows: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Plain version of :func:`gather_conv`: bf16 operands widened to f32
+    (their products are exact in f32) and summed per tap in f32."""
+    n_src, cin = feats.shape
+    f_z = torch.cat([feats, feats.new_zeros(1, cin)]).float()
+    wf = w.float()
+    out = torch.zeros(rows.shape[1], w.shape[2], dtype=torch.float32, device=feats.device)
+    for k in range(rows.shape[0]):
+        out += f_z[rows[k].long()] @ wf[k]
+    return out
+
+
+def gather_conv(feats: torch.Tensor, rows: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``Σ_k feats_z[rows[k]] @ w[k]`` → [n_out, Cout] f32.
+
+    feats [n_src, Cin] bf16, rows [K³, n_out] i32 (miss → n_src), w [K³,
+    Cin, Cout] bf16. On a CUDA tensor this launches the gather-conv kernel
+    (Cin and Cout multiples of 8, contiguous inputs); on a CPU tensor it
+    runs :func:`gather_conv_plain`. The caller masks by out-validity.
+    """
+    if feats.dtype != torch.bfloat16 or w.dtype != torch.bfloat16:
+        raise TypeError("gather_conv takes bf16 feats and w")
+    if rows.dtype != torch.int32:
+        raise TypeError("gather_conv takes int32 rows")
+    if feats.dim() != 2 or rows.dim() != 2 or w.dim() != 3:
+        raise ValueError("gather_conv: feats [n, Cin], rows [K3, n_out], w [K3, Cin, Cout]")
+    k3, n_out = rows.shape
+    n_src, cin = feats.shape
+    if w.shape[0] != k3 or w.shape[1] != cin:
+        raise ValueError(f"gather_conv: w {tuple(w.shape)} does not match rows/feats")
+    cout = w.shape[2]
+    if feats.device.type == "cpu":
+        return gather_conv_plain(feats, rows, w)
+    if feats.device.type != "cuda" or rows.device != feats.device or w.device != feats.device:
+        raise ValueError("gather_conv: all tensors on one CUDA device (or the CPU)")
+    if cin % 8 or cout % 8:
+        raise ValueError(f"gather_conv kernel needs Cin, Cout % 8 == 0, got {cin}, {cout}")
+    if not (feats.is_contiguous() and rows.is_contiguous() and w.is_contiguous()):
+        raise ValueError("gather_conv: inputs must be contiguous")
+    if feats.data_ptr() % 16 or w.data_ptr() % 16:
+        raise ValueError("gather_conv: feats and w must be 16-byte aligned")
+    out = torch.empty(n_out, cout, dtype=torch.float32, device=feats.device)
+    kernels.launch(
+        "gather_conv", feats.data_ptr(), n_src, cin, rows.data_ptr(), n_out, k3,
+        w.data_ptr(), cout, out.data_ptr(), torch.cuda.current_stream(feats.device).cuda_stream)
+    gather_conv.launches += 1
+    return out
+
+
+gather_conv.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Rulebooks
+# ---------------------------------------------------------------------------
+
+
+def _linearize64(coords: torch.Tensor, batch: torch.Tensor, dims) -> torch.Tensor:
+    nx, ny, nz = dims
+    c = coords.long()
+    return ((batch.long() * nz + c[..., 2]) * ny + c[..., 1]) * nx + c[..., 0]
+
+
+def kernel_offsets(kernel_size: Tuple[int, int, int]):
+    """(kx, ky, kz) per tap in spconv order (z-major flat index)."""
+    kx, ky, kz = kernel_size
+    return [(x, y, z) for z in range(kz) for y in range(ky) for x in range(kx)]
+
+
+def neighbor_rows(coords, batch, valid, dims, q_coords, q_batch, q_valid) -> torch.Tensor:
+    """Row of the active set (coords, batch, valid) at each query cell;
+    misses (empty cell, invalid query, outside the grid) → capacity."""
+    cap = coords.shape[0]
+    keys = torch.where(valid, _linearize64(coords, batch, dims),
+                       torch.full((cap,), _KEY_SENTINEL, dtype=torch.int64, device=coords.device))
+    sorted_keys, perm = torch.sort(keys)
+    dims_t = torch.tensor(dims, dtype=q_coords.dtype, device=q_coords.device)
+    ok = q_valid & ((q_coords >= 0) & (q_coords < dims_t)).all(dim=-1)
+    qk = torch.where(ok, _linearize64(q_coords, q_batch, dims), torch.full_like(ok, -1, dtype=torch.int64))
+    pos = torch.searchsorted(sorted_keys, qk.reshape(-1)).reshape(qk.shape).clamp_(max=cap - 1)
+    hit = ok & (sorted_keys[pos] == qk)
+    return torch.where(hit, perm[pos].to(torch.int32), torch.full_like(pos, cap, dtype=torch.int32))
+
+
+def build_subm_rulebook(st: SparseTensor, kernel_size=(3, 3, 3)) -> torch.Tensor:
+    """Submanifold rulebook rows [K³, cap] int32 (miss → cap)."""
+    center = tuple(k // 2 for k in kernel_size)
+    offs = torch.tensor([[o[a] - center[a] for a in range(3)] for o in kernel_offsets(kernel_size)],
+                        dtype=torch.int32, device=st.coords.device)
+    k3 = offs.shape[0]
+    q = st.coords[None, :, :] + offs[:, None, :]
+    return neighbor_rows(st.coords, st.batch, st.valid, st.dims, q,
+                         st.batch.expand(k3, -1), st.valid.expand(k3, -1))
+
+
+def conv_out_dim(n: int, k: int, s: int, p: int) -> int:
+    return (n + 2 * p - k) // s + 1
+
+
+def downsample_coords(st: SparseTensor, kernel_size, stride, padding, out_capacity):
+    """spconv output active set of a strided conv: y is active iff some
+    active x and tap k give x = y·s − p + k. Returns (coords [out_cap, 3],
+    batch, valid, out_dims) in ascending key order."""
+    out_dims = tuple(conv_out_dim(st.dims[a], kernel_size[a], stride[a], padding[a]) for a in range(3))
+    nx, ny, nz = out_dims
+    if max(st.batch_size, 1) * nx * ny * nz >= 2**31:
+        raise ValueError("output grid too large for int32 keys")
+    n_cand = [int(np.ceil(kernel_size[a] / stride[a])) for a in range(3)]
+    cand_keys, cand_valid = [], []
+    for deltas in itertools.product(*(range(c) for c in n_cand)):
+        q_axes, ok = [], st.valid
+        for a in range(3):
+            num = st.coords[:, a] + padding[a]
+            q = num // stride[a] - deltas[a]
+            k = num - q * stride[a]
+            ok = ok & (k >= 0) & (k < kernel_size[a]) & (q >= 0)
+            q_axes.append(q)
+        q = torch.stack(q_axes, dim=-1)
+        ok = ok & (q[:, 0] < nx) & (q[:, 1] < ny) & (q[:, 2] < nz)
+        cand_keys.append(torch.where(ok, linearize_coords(q, st.batch, out_dims),
+                                     torch.full_like(ok, INVALID_KEY, dtype=torch.int32)))
+        cand_valid.append(ok)
+    uniq, seg_valid, _ = unique_keys_sorted(torch.cat(cand_keys), torch.cat(cand_valid), out_capacity)
+    safe = torch.where(seg_valid, uniq, torch.zeros_like(uniq))
+    x = safe % nx
+    rest = safe // nx
+    y = rest % ny
+    rest = rest // ny
+    z = rest % nz
+    bb = rest // nz
+    return torch.stack([x, y, z], dim=-1).to(torch.int32), bb.to(torch.int32), seg_valid, out_dims
+
+
+def pair_query_rows(coords, batch, valid, tgt_coords, tgt_batch, tgt_valid, tgt_dims,
+                    kernel_size, stride, padding, mode: str) -> torch.Tensor:
+    """Per-tap rows [K³, n] between a strided conv's two active sets.
+
+    mode 'mul': query coord·s − pad + o_k (fine set looked up from coarse
+    queries); 'div': (coord + pad − o_k)/s with exact division (coarse set
+    looked up from fine queries). Misses → target capacity.
+    """
+    offs = torch.tensor(kernel_offsets(kernel_size), dtype=torch.int32, device=coords.device)
+    k3 = offs.shape[0]
+    sv = torch.tensor(stride, dtype=torch.int32, device=coords.device)
+    pv = torch.tensor(padding, dtype=torch.int32, device=coords.device)
+    if mode == "mul":
+        q = coords[None, :, :] * sv - pv + offs[:, None, :]
+        ok = valid.expand(k3, -1)
+    elif mode == "div":
+        num = coords[None, :, :] + pv - offs[:, None, :]
+        q = torch.div(num, sv, rounding_mode="floor")
+        ok = valid[None, :] & (num - q * sv == 0).all(dim=-1)
+    else:
+        raise ValueError(mode)
+    return neighbor_rows(tgt_coords, tgt_batch, tgt_valid, tgt_dims, q, batch.expand(k3, -1), ok)
+
+
+# ---------------------------------------------------------------------------
+# Convolutions
+# ---------------------------------------------------------------------------
+
+
+def _bf16(x: torch.Tensor) -> torch.Tensor:
+    return x.to(torch.bfloat16).contiguous()
+
+
+def subm_conv_apply(feats, valid, rows, w) -> torch.Tensor:
+    """Submanifold conv through a prebuilt rulebook: bf16 operands, f32
+    accumulation, output masked by validity."""
+    out = gather_conv(_bf16(feats), rows, _bf16(w))
+    return out * valid[:, None].to(out.dtype)
+
+
+def sparse_conv3d(st: SparseTensor, w, kernel_size, stride, padding, out_capacity) -> SparseTensor:
+    """Strided sparse conv generating a new active set: out[y] = Σ_k in[y·s − p + k] @ w[k]."""
+    out_coords, out_batch, out_valid, out_dims = downsample_coords(
+        st, kernel_size, stride, padding, out_capacity)
+    rows = pair_query_rows(out_coords, out_batch, out_valid, st.coords, st.batch, st.valid,
+                           st.dims, kernel_size, stride, padding, "mul")
+    out = gather_conv(_bf16(st.feats), rows, _bf16(w)) * out_valid[:, None].float()
+    return SparseTensor(feats=out, coords=out_coords, batch=out_batch, valid=out_valid,
+                        dims=out_dims, batch_size=st.batch_size)
+
+
+def sparse_inverse_conv3d(st: SparseTensor, target: SparseTensor, w, kernel_size, stride,
+                          padding) -> SparseTensor:
+    """Inverse conv onto a recorded finer active set: target t receives
+    from coarse y where t = y·s − p + k."""
+    rows = pair_query_rows(target.coords, target.batch, target.valid, st.coords, st.batch,
+                           st.valid, st.dims, kernel_size, stride, padding, "div")
+    out = gather_conv(_bf16(st.feats), rows, _bf16(w)) * target.valid[:, None].float()
+    return target.replace(feats=out)
+
+
+# dense path: at deep stages the active set fills much of a small grid;
+# scattering to a dense grid and running conv3d computes the same sums
+
+
+# dense activation budget: B·X·Y·Z·C elements
+DENSE_CONV_MAX_ELEMS = 192 * 1024 * 1024
+
+
+def use_dense_conv(st: SparseTensor, cout: int, min_occupancy: float = 0.15) -> bool:
+    """Dense path when capacity / cells ≥ ``min_occupancy`` (Python floats,
+    as the JAX package computes it) and the dense grid fits the budget."""
+    nx, ny, nz = st.dims
+    if st.batch_size <= 0:
+        return False
+    cells = st.batch_size * nx * ny * nz
+    occ = st.capacity / cells
+    elems = cells * max(st.feats.shape[-1], cout)
+    return occ >= min_occupancy and elems <= DENSE_CONV_MAX_ELEMS
+
+
+def _to_dense(st: SparseTensor) -> torch.Tensor:
+    """[B, C, Z, Y, X] grid holding the valid rows' features."""
+    nx, ny, nz = st.dims
+    cells = st.batch_size * nx * ny * nz
+    c = st.feats.shape[-1]
+    keys = torch.where(st.valid, _linearize64(st.coords, st.batch, st.dims).clamp(0, cells - 1),
+                       torch.full_like(st.valid, cells, dtype=torch.int64))
+    dense = st.feats.new_zeros(cells + 1, c)
+    dense[keys] = st.feats * st.valid[:, None].to(st.feats.dtype)
+    return dense[:cells].reshape(st.batch_size, nz, ny, nx, c).permute(0, 4, 1, 2, 3)
+
+
+def _dense_conv(dense, w, kernel_size, stride, padding) -> torch.Tensor:
+    """bf16 conv3d (bf16 in and out, as the JAX package), widened to f32;
+    returns [B, Cout, Z', Y', X']."""
+    kx, ky, kz = kernel_size
+    cin, cout = w.shape[1], w.shape[2]
+    kern = w.reshape(kz, ky, kx, cin, cout).permute(4, 3, 0, 1, 2)
+    out = F.conv3d(dense.to(torch.bfloat16), kern.to(torch.bfloat16),
+                   stride=(stride[2], stride[1], stride[0]),
+                   padding=(padding[2], padding[1], padding[0]))
+    return out.float()
+
+
+def _from_dense(dense, coords, batch, valid, dims) -> torch.Tensor:
+    b, c = dense.shape[:2]
+    flat = dense.permute(0, 2, 3, 4, 1).reshape(-1, c)
+    keys = _linearize64(coords, batch, dims).clamp(0, flat.shape[0] - 1)
+    return flat[keys] * valid[:, None].to(flat.dtype)
+
+
+def subm_conv_dense(st: SparseTensor, w, kernel_size=(3, 3, 3)) -> torch.Tensor:
+    """Submanifold conv via dense scatter → conv3d → gather back."""
+    pad = tuple(k // 2 for k in kernel_size)
+    out = _dense_conv(_to_dense(st), w, kernel_size, (1, 1, 1), pad)
+    return _from_dense(out, st.coords, st.batch, st.valid, st.dims)
+
+
+def sparse_conv3d_dense(st: SparseTensor, w, kernel_size, stride, padding,
+                        out_capacity) -> SparseTensor:
+    """Strided sparse conv via the dense path (same output active set)."""
+    out_coords, out_batch, out_valid, out_dims = downsample_coords(
+        st, kernel_size, stride, padding, out_capacity)
+    out = _dense_conv(_to_dense(st), w, kernel_size, stride, padding)
+    y = _from_dense(out, out_coords, out_batch, out_valid, out_dims)
+    return SparseTensor(feats=y, coords=out_coords, batch=out_batch, valid=out_valid,
+                        dims=out_dims, batch_size=st.batch_size)

@@ -1,0 +1,279 @@
+"""The PyTorch port's ops against the JAX package's on the CPU: segments,
+voxelization, compaction, geometry, projection, and the plain versions of
+kernels K2 (CCL roots) and K3 (NMS keep masks). Integer and bool outputs
+must be equal; float outputs agree within 1e-5 (f32 on both sides, sums in
+another order). GPU-marked tests hold the CUDA kernels to the plain versions
+and skip without a card."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from fullysparsefusion_tpu.ops import geometry as jgeo
+from fullysparsefusion_tpu.ops import segment as jseg
+from fullysparsefusion_tpu.ops.ccl import connected_components_bev
+from fullysparsefusion_tpu.ops.nms import multiclass_nms_bev_batched as j_multiclass_nms
+from fullysparsefusion_tpu.ops.nms import nms_mask_from_iou as j_nms_mask
+from fullysparsefusion_tpu.ops.pallas_kernels import nms_scan_pallas
+from fullysparsefusion_tpu.ops.projection import points_in_mask_compact as j_pim
+from fullysparsefusion_tpu.ops.projection import project_points_2d as j_project
+from fullysparsefusion_tpu.ops.voxelize import voxelize_points as j_voxelize
+from fullysparsefusion_tpu.utils.gather import masked_gather as j_masked_gather
+from fullysparsefusion_tpu_torch.ops import ccl, geometry, nms, projection, segment
+from fullysparsefusion_tpu_torch.ops.voxelize import voxelize_points
+from fullysparsefusion_tpu_torch.utils.gather import masked_gather
+
+F32_TOL = 1e-5
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU; on the card chip_smoke.py runs the kernels")
+    return torch.device("cuda")
+
+
+def t(x):
+    return torch.from_numpy(np.array(x))
+
+
+def eq(a, b):
+    a = a.numpy() if torch.is_tensor(a) else np.asarray(a)
+    np.testing.assert_array_equal(a, np.asarray(b))
+
+
+def close(a, b, tol=F32_TOL):
+    a = a.numpy() if torch.is_tensor(a) else np.asarray(a)
+    np.testing.assert_allclose(a, np.asarray(b), rtol=tol, atol=tol)
+
+
+# --- segments --------------------------------------------------------------
+
+
+@pytest.mark.parametrize("capacity", [40, 300])
+def test_unique_segments_exact(capacity):
+    rng = np.random.default_rng(capacity)
+    keys = rng.integers(0, 120, 500).astype(np.int32)
+    valid = rng.random(500) > 0.2
+    got = segment.unique_segments(t(keys), t(valid), capacity)
+    ref = jseg.unique_segments(jnp.asarray(keys), jnp.asarray(valid), capacity)
+    for f in ("seg_id", "unique_keys", "counts", "num_segments", "seg_valid"):
+        eq(getattr(got, f), getattr(ref, f))
+    uk, sv, ns = segment.unique_keys_sorted(t(keys), t(valid), capacity)
+    ruk, rsv, rns = jseg.unique_keys_sorted(jnp.asarray(keys), jnp.asarray(valid), capacity)
+    eq(uk, ruk), eq(sv, rsv), eq(ns, rns)
+
+
+def test_segment_reductions_and_ingroup_indices():
+    rng = np.random.default_rng(1)
+    cap = 64
+    seg_id = rng.integers(0, cap + 1, 700).astype(np.int32)   # cap = trash
+    feat = rng.normal(size=(700, 5)).astype(np.float32)
+    counts = np.bincount(seg_id, minlength=cap + 1)[:cap].astype(np.int32)
+    close(segment.segment_sum(t(feat), t(seg_id), cap),
+          jseg.segment_sum(jnp.asarray(feat), jnp.asarray(seg_id), cap))
+    close(segment.segment_mean(t(feat), t(seg_id), cap, counts=t(counts)),
+          jseg.segment_mean(jnp.asarray(feat), jnp.asarray(seg_id), cap, counts=jnp.asarray(counts)))
+    for name in ("segment_max", "segment_min"):
+        eq(getattr(segment, name)(t(feat), t(seg_id), cap, empty_value=-3.0),
+           getattr(jseg, name)(jnp.asarray(feat), jnp.asarray(seg_id), cap, empty_value=-3.0))
+    groups = rng.integers(0, 9, 300).astype(np.int32)
+    valid = rng.random(300) > 0.3
+    eq(segment.ingroup_indices(t(groups), t(valid)),
+       jseg.ingroup_indices(jnp.asarray(groups), jnp.asarray(valid)))
+
+
+@pytest.mark.parametrize("capacity", [10, 200, 400])
+def test_masked_gather_exact(capacity):
+    mask = np.random.default_rng(capacity).random(300) > 0.6
+    got = masked_gather(t(mask), capacity)
+    ref = j_masked_gather(jnp.asarray(mask), capacity)
+    eq(got[0], ref[0]), eq(got[1], ref[1])
+
+
+def test_voxelize_points_exact():
+    rng = np.random.default_rng(2)
+    xyz = rng.uniform(-14, 14, (3000, 3)).astype(np.float32)
+    batch = rng.integers(0, 2, 3000).astype(np.int32)
+    valid = rng.random(3000) > 0.1
+    args = ((0.4, 0.4, 0.4), (-12.8, -12.8, -3.0, 12.8, 12.8, 3.2), 300)
+    seg, coords, vb, vc = voxelize_points(t(xyz), t(batch), t(valid), *args)
+    rseg, rcoords, rvb, rvc = j_voxelize(jnp.asarray(xyz), jnp.asarray(batch),
+                                         jnp.asarray(valid), *args)
+    for f in ("seg_id", "unique_keys", "counts", "num_segments", "seg_valid"):
+        eq(getattr(seg, f), getattr(rseg, f))
+    eq(coords, rcoords), eq(vb, rvb), eq(vc, rvc)
+    assert int(rseg.num_segments) > 300       # overflow exercised
+
+
+# --- K2: connected components ----------------------------------------------
+
+
+def _union_find_roots(xy, batch, valid):
+    n = len(xy)
+    parent = list(range(n))
+
+    def find(a):
+        while parent[a] != a:
+            parent[a] = parent[parent[a]]
+            a = parent[a]
+        return a
+
+    d2 = ((xy[:, None, :] - xy[None, :, :]) ** 2).sum(-1)
+    for i in range(n):
+        for j in range(i + 1, n):
+            if valid[i] and valid[j] and batch[i] == batch[j] and d2[i, j] < 1.0:
+                parent[find(i)] = find(j)
+    return np.array([min(j for j in range(n) if valid[j] and find(j) == find(i))
+                     if valid[i] else -1 for i in range(n)])
+
+
+def _ccl_problems(seed, g=3, n=96):
+    rng = np.random.default_rng(seed)
+    xy = rng.uniform(0, 9, (g, n, 2)).astype(np.float32)
+    # away from the random points: a chain at d² == 1 (apart) and one at 0.99 (joined)
+    xy[0, :10] = np.arange(10, dtype=np.float32)[:, None] * np.float32([1.0, 0.0]) - 30
+    xy[0, 10:20] = np.arange(10, dtype=np.float32)[:, None] * np.float32([0.99, 0.0]) - 60
+    batch = rng.integers(0, 2, (g, n)).astype(np.int32)
+    batch[0, :20] = 0
+    valid = rng.random((g, n)) > 0.15
+    valid[0, :20] = True
+    valid[2] = False                                  # an all-invalid problem
+    return xy, batch, valid
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_ccl_roots_plain_matches_union_find_and_jax(seed):
+    xy, batch, valid = _ccl_problems(seed)
+    roots = ccl.ccl_roots(t(xy), t(batch), t(valid))
+    assert roots.dtype == torch.int32
+    for gi in range(xy.shape[0]):
+        eq(roots[gi], _union_find_roots(xy[gi], batch[gi], valid[gi]))
+    labels = ccl.connected_components_bev_batched(t(xy), t(batch), t(valid))
+    for gi in range(xy.shape[0]):
+        ref = connected_components_bev(jnp.asarray(xy[gi]), jnp.asarray(batch[gi]),
+                                       jnp.asarray(valid[gi]), 1.0)
+        eq(labels[gi], ref)
+    assert len(set(roots[0, :10].tolist())) == 10 and len(set(roots[0, 10:20].tolist())) == 1
+
+
+@pytest.mark.gpu
+def test_ccl_kernel_matches_plain(cuda):
+    xy, batch, valid = _ccl_problems(0, g=6, n=1024)
+    args = [t(a).to(cuda) for a in (xy, batch, valid)]
+    assert torch.equal(ccl.ccl_roots(*args).cpu(), ccl.ccl_roots_plain(*args).cpu())
+
+
+# --- K3: NMS ---------------------------------------------------------------
+
+
+def _nms_case(seed, n, ties=False, all_invalid=False):
+    rng = np.random.default_rng(seed)
+    m = rng.random((n, n)).astype(np.float32)
+    iou = (m + m.T) / 2
+    np.fill_diagonal(iou, 1.0)
+    scores = rng.random(n).astype(np.float32)
+    if ties:
+        scores = np.round(scores * 4) / 4        # many equal scores: stable order decides
+    valid = np.zeros(n, bool) if all_invalid else rng.random(n) > 0.2
+    return iou, scores, valid
+
+
+@pytest.mark.parametrize("case", [dict(n=40), dict(n=40, ties=True),
+                                  dict(n=40, all_invalid=True), dict(n=64)])
+def test_nms_mask_from_iou_matches_jax(case):
+    iou, scores, valid = _nms_case(7, **case)
+    got = nms.nms_mask_from_iou(t(iou), t(scores), t(valid), 0.6)
+    eq(got, j_nms_mask(jnp.asarray(iou), jnp.asarray(scores), jnp.asarray(valid), 0.6))
+    if case.get("all_invalid"):
+        assert not got.any()
+
+
+def test_nms_keep_plain_matches_pallas_interpret_64():
+    iou, _, valid = _nms_case(3, 64)
+    order = torch.arange(64, dtype=torch.int32)[None]
+    got = nms.nms_keep_plain(t(iou), order, t(valid)[None], 0.6)[0]
+    eq(got, nms_scan_pallas(jnp.asarray(iou), jnp.asarray(valid), 0.6, interpret=True))
+
+
+def _boxes(rng, n, extent=6.0):
+    b = np.zeros((n, 9), np.float32)
+    b[:, :2] = rng.uniform(-extent, extent, (n, 2))
+    b[:, 2] = rng.uniform(-1, 0, n)
+    b[:, 3:6] = rng.uniform(0.5, 3.0, (n, 3))
+    b[:, 6] = rng.uniform(-np.pi, np.pi, n)
+    b[:, 7:] = rng.normal(size=(n, 2))
+    return b
+
+
+def test_multiclass_nms_bev_batched_matches_jax():
+    rng = np.random.default_rng(4)
+    n, c = 120, 4
+    boxes = _boxes(rng, n)
+    scores = rng.random((n, c)).astype(np.float32)
+    scores[:10] = 0.5                           # cross-class and cross-box ties
+    valid = rng.random(n) > 0.1
+    batch = rng.integers(0, 2, n).astype(np.int32)
+    got = nms.multiclass_nms_bev_batched(t(boxes), t(scores), t(valid), t(batch), 2,
+                                         0.2, 0.45, 150)
+    ref = j_multiclass_nms(jnp.asarray(boxes), jnp.asarray(scores), jnp.asarray(valid),
+                           jnp.asarray(batch), 2, 0.2, 0.45, 150)
+    eq(got.valid, ref.valid), eq(got.labels, ref.labels)
+    close(got.boxes, ref.boxes), close(got.scores, ref.scores)
+    assert 0 < int(got.valid.sum()) < 300     # below max_num: the NMS, not the cap, decides
+
+
+@pytest.mark.gpu
+def test_nms_kernel_matches_plain(cuda):
+    rng = np.random.default_rng(0)
+    n, c = 1280, 10
+    boxes = t(_boxes(rng, n, extent=20.0)).to(cuda)
+    scores = t(rng.random((c, n)).astype(np.float32)).to(cuda)
+    valid = t(rng.random((c, n)) > 0.1).to(cuda)
+    iou = geometry.boxes_iou_bev(boxes, boxes).contiguous()
+    order, vs = nms.class_orders(scores, valid)
+    assert torch.equal(nms.nms_keep(iou, order, vs.contiguous(), 0.25).cpu(),
+                       nms.nms_keep_plain(iou, order, vs, 0.25).cpu())
+
+
+# --- geometry and projection -----------------------------------------------
+
+
+def test_box_geometry_matches_jax():
+    rng = np.random.default_rng(5)
+    boxes = _boxes(rng, 50)
+    pts = rng.uniform(-7, 7, (400, 3)).astype(np.float32)
+    tb, jb = t(boxes), jnp.asarray(boxes)
+    close(geometry.gravity_center(tb), jgeo.gravity_center(jb))
+    close(geometry.enlarge_boxes(tb, (1.0, 1.0, 1.0), 0.5),
+          jgeo.enlarge_boxes(jb, (1.0, 1.0, 1.0), 0.5))
+    close(geometry.rotate_points_z(t(pts), t(pts[:, 0])),
+          jgeo.rotate_points_z(jnp.asarray(pts), jnp.asarray(pts[:, 0])))
+    close(geometry.box_corners_bev(tb), jgeo.box_corners_bev(jb))
+    inside = geometry.points_in_boxes(t(pts), tb)
+    eq(inside, jgeo.points_in_boxes(jnp.asarray(pts), jb))
+    assert inside.any()
+    iou = geometry.boxes_iou_bev(tb, tb[:20])
+    close(iou, jgeo.boxes_iou_bev(jb, jb[:20]))
+    assert (iou > 0).sum() > 20
+
+
+def test_projection_and_compact_mask_lookup_match_jax():
+    from fixtures import make_camera_data, make_scene
+
+    pb, gt = make_scene(seed=0)
+    cam = make_camera_data(pb, gt)
+    xyz = np.asarray(pb.points[:, :3])
+    batch = np.asarray(pb.batch_idx)
+    uv, ok = projection.project_points_2d(t(xyz), t(np.asarray(cam.lidar2img[0])),
+                                          cam.img_h, cam.img_w)
+    ruv, rok = j_project(jnp.asarray(xyz), cam.lidar2img[0], cam.img_h, cam.img_w)
+    eq(ok, rok)
+    close(uv, ruv)
+    ids, scores = projection.points_in_mask_compact(
+        t(xyz), t(batch), t(np.asarray(cam.lidar2img)),
+        t(np.asarray(cam.masks).astype(np.int32)), cam.img_h, cam.img_w)
+    rids, rscores = j_pim(jnp.asarray(xyz), jnp.asarray(batch), cam.lidar2img, cam.masks,
+                          cam.img_h, cam.img_w)
+    eq(ids, rids), eq(scores, rscores)
+    assert (ids > 0).any()

@@ -1,0 +1,161 @@
+#!/usr/bin/env python3
+"""Where one request's time goes in the PyTorch port, on one NVIDIA GPU.
+
+    python3 tools/profile_torch_request.py [--requests 3]
+
+Builds the kernels and the full-width FSF of ``chip_smoke.py`` (random
+weights, seed 0) on its bench-scale scene (seed 0), warms up, then:
+
+1. spans: CUDA events around every top-level submodule of ``FSF`` and around
+   the functions the forward calls outside them (mask lookup, RoI pooling,
+   foreground extraction, ``get_bboxes``), averaged over ``--requests``
+   requests. Spans are stream time between the two events, idle gaps
+   included, so they add up to the request's time; nested spans are listed
+   with their parent.
+2. kernels: ``torch.profiler`` over one request; device time by kernel name
+   (top 15) and the device's busy share (the sum of kernel times over the
+   request's stream time).
+
+Prints one JSON object per line; exits non-zero without a CUDA device.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+from collections import defaultdict
+
+import torch
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+SPANS_TOP = ("seg_core", "seg_enhance_mlp", "seg_head", "frustum", "frustum_head",
+             "fsd_branch", "combine_frustum_mlp", "combine_fsd_mlp")
+SPANS_NESTED = {"seg_core": ("DynamicScatterVFE_0", "SparseUNet_0"),
+                "fsd_branch": ("backbone", "bbox_head")}
+
+
+class Spans:
+    """Stream time of named spans, from CUDA events recorded at their ends."""
+
+    def __init__(self):
+        self.open = {}
+        self.ms = defaultdict(float)
+
+    def start(self, name):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        self.open[name] = ev
+
+    def stop(self, name):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        self.open[name] = (self.open[name], ev)
+
+    def collect(self):
+        torch.cuda.synchronize()
+        for name, (a, b) in self.open.items():
+            self.ms[name] += a.elapsed_time(b)
+        self.open = {}
+
+
+def hook_module(mod, name, spans):
+    mod.register_forward_pre_hook(lambda *_: spans.start(name))
+    mod.register_forward_hook(lambda *_: spans.stop(name))
+
+
+def wrap(owner, attr, name, spans):
+    fn = getattr(owner, attr)
+
+    def timed(*a, **k):
+        spans.start(name)
+        out = fn(*a, **k)
+        spans.stop(name)
+        return out
+
+    setattr(owner, attr, timed)
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--requests", type=int, default=3)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("profile_torch_request: no CUDA device", file=sys.stderr)
+        return 1
+    import chip_smoke
+    from fullysparsefusion_tpu_torch import kernels
+    from fullysparsefusion_tpu_torch.models import fsf as fsf_mod
+    from fullysparsefusion_tpu_torch.weights import build_fsf
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    kernels.build_all()
+    cfg = chip_smoke.bench_config()
+    model = build_fsf(cfg, seed=0, device="cuda")
+    pb, cam = chip_smoke.bench_request(0, cfg)
+
+    def request():
+        return model.get_bboxes(model(pb, cam, 1), 1)
+
+    for _ in range(2):
+        request()
+    torch.cuda.synchronize()
+
+    spans = Spans()
+    for name in SPANS_TOP:
+        hook_module(getattr(model, name), name, spans)
+        for sub in SPANS_NESTED.get(name, ()):
+            hook_module(getattr(getattr(model, name), sub), f"{name}.{sub}", spans)
+    for i in range(cfg.num_refine_stages):
+        for part in ("refine_img_mlp", "refine_sir", "lidar_img_mlp", "position_encoder",
+                     "out_proj", "refined_head"):
+            hook_module(getattr(model, f"{part}_{i}"), f"refine.{part}_{i}", spans)
+    wrap(fsf_mod, "gather_point_instances", "mask_lookup", spans)
+    wrap(fsf_mod, "extract_roi_points_grid", "refine.roi_grid_pooling", spans)
+    wrap(model.fsd_branch, "extract_foreground", "fsd_branch.extract_foreground", spans)
+    wrap(model, "get_bboxes", "get_bboxes", spans)
+    wrap(model, "forward", "forward", spans)
+
+    total = 0.0
+    for _ in range(args.requests):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        request()
+        end.record()
+        spans.collect()
+        total += start.elapsed_time(end)
+    n = args.requests
+    print(json.dumps({"phase": "spans", "requests": n, "request_ms": round(total / n, 3),
+                      "ms": {k: round(v / n, 3) for k, v in
+                             sorted(spans.ms.items(), key=lambda kv: -kv[1])}}), flush=True)
+
+    from torch.profiler import ProfilerActivity, profile
+
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        start.record()
+        request()
+        end.record()
+        torch.cuda.synchronize()
+    spans.collect()
+    wall_ms = start.elapsed_time(end)
+    by_kernel = defaultdict(lambda: [0.0, 0])
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            by_kernel[ev.name][0] += ev.time_range.elapsed_us() / 1e3
+            by_kernel[ev.name][1] += 1
+    busy = sum(v[0] for v in by_kernel.values())
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:15]
+    print(json.dumps({"phase": "kernels", "request_ms": round(wall_ms, 3),
+                      "device_busy_ms": round(busy, 3),
+                      "device_busy_share": round(busy / wall_ms, 4) if wall_ms else None,
+                      "kernel_launches": sum(v[1] for v in by_kernel.values()),
+                      "top": [{"name": k[:90], "ms": round(v[0], 3), "calls": v[1]}
+                              for k, v in top]}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
