@@ -16,7 +16,9 @@ Phases, each of which ends the script with a non-zero exit on failure:
 4. kernels: every kernel call of one request is captured and replayed
    against its plain version on the GPU (K1 within a stated tolerance, K2 and
    K3 bitwise), with both timed by CUDA events and set beside the least time
-   the card could take (``bound_ms``).
+   the card could take (``bound_ms``); K1 also runs adversarial rulebooks
+   made on the card (an all-miss tile, every slot a miss, exactly one hit per
+   row, ``n_out`` off the tile, Cin 16 / Cout 48).
 
 The last lines are a ``{"kernels": [...]}`` JSON object, the card's name and
 power limit from ``nvidia-smi``, and ``{"ok": true, "device": {...}}``.
@@ -206,6 +208,61 @@ def serve(model, requests):
     return dets
 
 
+def check_gather_conv(feats, rows, w, plan=None) -> float:
+    """K1 against its plain version; fails beyond ``K1_RTOL`` of the output's
+    magnitude or if two runs differ. Returns the largest absolute error."""
+    from fullysparsefusion_tpu_torch.ops import sparse_conv
+
+    got = sparse_conv.gather_conv(feats, rows, w, plan)
+    again = sparse_conv.gather_conv(feats, rows, w, plan)
+    ref = sparse_conv.gather_conv_plain(feats, rows, w)
+    err = (got - ref).abs().max().item() if ref.numel() else 0.0
+    scale = max(1.0, ref.abs().max().item() if ref.numel() else 0.0)
+    if not err <= K1_RTOL * scale:
+        fail(f"gather_conv {tuple(feats.shape)}->{tuple(ref.shape)} err {err:.3g}")
+    if not torch.equal(got, again):
+        fail(f"gather_conv {tuple(feats.shape)}->{tuple(ref.shape)} differs between two runs")
+    return err
+
+
+def tile_taps(plan, k3: int) -> torch.Tensor:
+    """Taps each kernel tile walks: the OR of its rows' masks, counted."""
+    from fullysparsefusion_tpu_torch.ops.sparse_conv import TILE_ROWS
+
+    m = plan.masks[plan.order.long()]
+    m = torch.nn.functional.pad(m, (0, -m.numel() % TILE_ROWS)).view(-1, TILE_ROWS)
+    bits = (m[..., None] >> torch.arange(k3, device=m.device, dtype=m.dtype)) & 1
+    return bits.amax(dim=1).sum(dim=1)
+
+
+def adversarial_gather_conv(feats, rows, w):
+    """K1 on rulebooks made on the card to hit its edges: a tile of rows with
+    no hit, every slot a miss, exactly one hit per row, ``n_out`` off the
+    tile, and Cin 16 / Cout 48."""
+    from fullysparsefusion_tpu_torch.ops.sparse_conv import TILE_ROWS
+
+    n_src, n_out = feats.shape[0], rows.shape[1]
+    g = torch.Generator(device=feats.device).manual_seed(0)
+    cases = {}
+    r = rows.clone()
+    r[:, 3 * TILE_ROWS:5 * TILE_ROWS] = n_src
+    cases["all_miss_tile"] = (feats, r, w)
+    cases["every_slot_misses"] = (feats, torch.full_like(rows, n_src), w)
+    r = torch.full_like(rows, n_src)
+    tap = torch.randint(0, rows.shape[0], (n_out,), generator=g, device=rows.device)
+    r[tap, torch.arange(n_out, device=rows.device)] = torch.randint(
+        0, n_src, (n_out,), generator=g, device=rows.device, dtype=torch.int32)
+    cases["one_hit_per_row"] = (feats, r, w)
+    cases["n_out_off_tile"] = (feats, rows[:, :n_out - 77].contiguous(), w)
+    f16 = torch.randn(n_src, 16, generator=g, device=feats.device).to(torch.bfloat16)
+    w48 = (torch.randn(rows.shape[0], 16, 48, generator=g, device=feats.device) / 20.0
+           ).to(torch.bfloat16)
+    cases["cin16_cout48"] = (f16, rows, w48)
+    errs = {name: check_gather_conv(*args) for name, args in cases.items()}
+    log({"phase": "kernel_adversarial", "kernel": "gather_conv", "tolerance": K1_RTOL,
+         "max_abs_err": errs})
+
+
 def check_kernels(model, request):
     """Replay every kernel call of one request against its plain version."""
     from fullysparsefusion_tpu_torch.ops import ccl, nms, sparse_conv
@@ -218,25 +275,24 @@ def check_kernels(model, request):
     torch.cuda.synchronize()
     results = {}
 
-    # K1: gather conv, every conv of the frame's gather path
+    # K1: gather conv, every conv of the frame's gather path, with its plan
     rows_out, tot = [], dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, err=0.0, flop=0.0, byte=0.0)
-    for feats, rows, w in calls["gather_conv"]:
-        got = sparse_conv.gather_conv(feats, rows, w)
-        ref = sparse_conv.gather_conv_plain(feats, rows, w)
-        err = (got - ref).abs().max().item()
-        scale = max(1.0, ref.abs().max().item())
-        if not err <= K1_RTOL * scale:
-            fail(f"gather_conv {tuple(feats.shape)}->{tuple(ref.shape)} err {err:.3g}")
+    for feats, rows, w, plan in calls["gather_conv"]:
+        err = check_gather_conv(feats, rows, w, plan)
         n_src, cin = feats.shape
         k3, n_out = rows.shape
         cout = w.shape[2]
         hits = int((rows < n_src).sum())
         flop = 2.0 * hits * cin * cout
         byte = 2.0 * n_src * cin + 4.0 * k3 * n_out + 2.0 * k3 * cin * cout + 4.0 * n_out * cout
-        ms = time_ms(lambda: sparse_conv.gather_conv(feats, rows, w), 20)
+        ms = time_ms(lambda: sparse_conv.gather_conv(feats, rows, w, plan), 20)
         plain_ms = time_ms(lambda: sparse_conv.gather_conv_plain(feats, rows, w), 5)
         bound = max(flop / PEAK_BF16_FLOPS, byte / PEAK_BYTES) * 1e3
+        taps = tile_taps(plan, k3)
         rows_out.append({"n_src": n_src, "n_out": n_out, "cin": cin, "cout": cout, "hits": hits,
+                         "hit_share": round(hits / (k3 * n_out), 4),
+                         "taps_per_tile": round(float(taps.float().mean()), 3),
+                         "all_miss_tiles": int((taps == 0).sum()), "tiles": int(taps.numel()),
                          "ms": round(ms, 4), "plain_ms": round(plain_ms, 4),
                          "bound_ms": round(bound, 5), "max_abs_err": err})
         for k, v in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", bound), ("flop", flop),
@@ -244,6 +300,7 @@ def check_kernels(model, request):
             tot[k] += v
         tot["err"] = max(tot["err"], err)
     log({"phase": "kernel_calls", "kernel": "gather_conv", "calls": rows_out})
+    adversarial_gather_conv(*calls["gather_conv"][0][:3])
     results["gather_conv"] = dict(
         max_abs_err=tot["err"], ms=tot["ms"], plain_ms=tot["plain_ms"], bound_ms=tot["bound_ms"],
         bound_by="operations" if tot["flop"] / PEAK_BF16_FLOPS > tot["byte"] / PEAK_BYTES

@@ -9,123 +9,355 @@
 // feats [n_src, cin] bf16, rows [k3, n_out] i32 where a miss is n_src (the
 // zero row), w [k3, cin, cout] bf16, f32 accumulation. n_out may differ
 // from n_src (strided and inverse convs). The caller masks by out-validity.
+// Beside the rows the kernel takes the rulebook's plan (ops/sparse_conv.py::
+// plan_rulebook): masks[r], the k3-bit set of taps that hit for output row r,
+// and order, the rows stably sorted by that mask.
 //
-// What bounds it: per tap the gathered rows feed a [64, cin] x [cin, 64]
-// product, so at the UNet's widths (cin 64..512) the work is tensor-core
-// operations on the rulebook hits plus a row gather of cin*2 bytes per hit;
-// the least time is the larger of the hit FLOPs over the bf16 rate and the
-// feats/rows/w/out bytes over the memory rate (PERF.md holds both).
+// What bounds it: the tensor-core operations on the rulebook's hits (bf16,
+// f32 accumulation) and the bytes of feats, rows, w and out; at the UNet's
+// shapes the bytes bound it (PERF.md holds both per call). Between the two
+// stand the rulebook's misses (5-40 % of the slots hit), a row gather that
+// TMA cannot do, and the latency of those gathers.
 //
-// Design: one block per (64 output rows x 64 output channels) tile. For each
-// tap the block reads its 64 rulebook rows once, then walks cin in 32-wide
-// slices: the 64 gathered source rows (16-byte vector loads, zeros for a
-// miss or past cin) and the w[k] slice go to shared memory, and eight warps
-// run bf16 WMMA 16x16x16 fragments into f32 accumulators that stay in
-// registers across all taps. A direct row gather is exact for any rulebook,
-// so the TPU kernel's windows, residual repair and fallback have no
-// counterpart. No wgmma/TMA yet: this is the simple, right form.
+// Design (the mask-sorted implicit GEMM of spconv 2.x, on wgmma):
+// - A block owns 128 consecutive rows of the sorted order and up to 256
+//   output channels. It ORs its rows' masks and walks only the taps in that
+//   OR, in ascending tap order, so a tile of rows that share taps does 1-8
+//   taps (inverse convs) instead of 27 and a tile of capacity padding does
+//   none: it writes zeros. Each row's sum stays in registers in a fixed
+//   order: no atomics, no split over blocks, bitwise reproducible.
+// - For each (tap, 64-channel slice of cin) a stage holds the 128 gathered
+//   source rows (A, K-major) and the [64, BN] slice of w[tap] (B, N-major),
+//   both in the 128-byte swizzled layout wgmma reads. Loads are 16-byte
+//   cp.async.cg, zero-filled (src-size 0) for a miss, a row past n_out or a
+//   channel past cin. A ring of 3 stages keeps two slices in flight while
+//   two warpgroups (64 rows each) run wgmma m64nBNk16 on the third; the next
+//   slice's loads are issued while the wgmmas run. At BN <= 128 the ring
+//   leaves room for two blocks on an SM, whose loops interleave (measured
+//   faster on the H100 than deeper rings, 64-row tiles, or keeping a wgmma
+//   group in flight across the barrier).
+// - BN covers cout (up to 256), so a gathered row is read once per conv; it
+//   is halved, and the row read once per BN slice, only while the grid would
+//   fill less than half the card.
+// - The block writes each row straight to its original position (order[r]);
+//   no gather or scatter launch follows.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
-
-using namespace nvcuda;
 
 namespace {
 
-constexpr int BM = 64;   // output rows per block
-constexpr int BN = 64;   // output channels per block
-constexpr int BK = 32;   // input channels per shared-memory slice
-constexpr int A_LD = BK + 8;   // bf16 leading dims: multiples of 8, rows 16-byte aligned
-constexpr int B_LD = BN + 8;
-constexpr int C_LD = BN + 4;   // f32 leading dim: multiple of 4
-constexpr int THREADS = 256;   // 8 warps: 4 row strips x 2 column halves
+typedef __nv_bfloat16 bf16;
 
-__global__ void __launch_bounds__(THREADS)
-gather_conv_kernel(const __nv_bfloat16* __restrict__ feats, int n_src, int cin,
+constexpr int BM = 128;        // output rows per block (sorted order)
+constexpr int BK = 64;         // input channels per stage: one 128-byte swizzle row
+constexpr int STAGES = 3;
+constexpr int THREADS = 256;   // two warpgroups: rows 0-63 and 64-127
+constexpr int A_BYTES = BM * BK * 2;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(dst), "l"(src), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// wgmma-operand descriptor of a 128-byte-swizzled tile in shared memory
+__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo & 0x3FFFF) >> 4) << 16) |
+         (static_cast<uint64_t>((sbo & 0x3FFFF) >> 4) << 32) | (1ull << 62);
+}
+
+template <int R>
+__device__ __forceinline__ void fence_regs(float* d) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+}
+
+// D[64, N] += A[64, 16] (K-major) x B[16, N] (N-major), f32 accumulators:
+// thread t of the warpgroup holds rows 16*(t/32) + (t%32)/4 (+8) and columns
+// 8*j + 2*(t%4) (+1), as d[4j + {0, 1, 2, 3}].
+__device__ __forceinline__ void wgmma_n64(float* d, uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_n128(float* d, uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_n256(float* d, uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63,"
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79,"
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95,"
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111,"
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+template <int BN>
+__device__ __forceinline__ void wgmma(float* d, uint64_t da, uint64_t db) {
+  if constexpr (BN == 64) wgmma_n64(d, da, db);
+  else if constexpr (BN == 128) wgmma_n128(d, da, db);
+  else wgmma_n256(d, da, db);
+}
+
+template <int BN>
+__global__ void __launch_bounds__(THREADS, 1)
+gather_conv_kernel(const bf16* __restrict__ feats, int n_src, int cin,
                    const int* __restrict__ rows, int n_out, int k3,
-                   const __nv_bfloat16* __restrict__ w, int cout,
+                   const bf16* __restrict__ w, int cout,
+                   const int* __restrict__ order, const int* __restrict__ masks,
                    float* __restrict__ out) {
-  __shared__ __align__(32) __nv_bfloat16 As[BM * A_LD];
-  __shared__ __align__(32) __nv_bfloat16 Bs[BK * B_LD];
-  __shared__ __align__(32) float Cs[BM * C_LD];
-  __shared__ int src[BM];
+  constexpr int B_BYTES = BK * BN * 2;
+  constexpr int STAGE_BYTES = A_BYTES + B_BYTES;
+  extern __shared__ uint8_t smem_raw[];
+  // the swizzle pattern is taken from address bits 7-9: align stages to 1 KB
+  const uint32_t pad = (1024 - (smem_u32(smem_raw) & 1023)) & 1023;
+  uint8_t* smem = smem_raw + pad;
+  const uint32_t smem_s = smem_u32(smem);
+  int* src = reinterpret_cast<int*>(smem + STAGES * STAGE_BYTES);  // [taps, BM]
+  int* orow = src + k3 * BM;                                         // [BM]
+  int* taps = orow + BM;                                             // [32]
+  unsigned* tile_mask = reinterpret_cast<unsigned*>(taps + 32);
 
+  const int tid = threadIdx.x;
   const int m0 = blockIdx.x * BM;
   const int n0 = blockIdx.y * BN;
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int wr = warp / 2;          // 16-row strip
-  const int wc = warp % 2;          // 32-column half
 
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2];
-  wmma::fill_fragment(acc[0], 0.0f);
-  wmma::fill_fragment(acc[1], 0.0f);
-
-  // one 16-byte chunk of A and of B per thread per slice
-  const int a_r = tid / (BK / 8), a_c = (tid % (BK / 8)) * 8;
-  const int b_r = tid / (BN / 8), b_c = (tid % (BN / 8)) * 8;
-
-  for (int k = 0; k < k3; ++k) {
-    if (tid < BM) {
-      const int r = m0 + tid;
-      src[tid] = (r < n_out) ? rows[(size_t)k * n_out + r] : n_src;
-    }
-    __syncthreads();
-    const int s = src[a_r];
-    const bool a_hit = s >= 0 && s < n_src;
-    const __nv_bfloat16* wk = w + (size_t)k * cin * cout;
-    for (int c0 = 0; c0 < cin; c0 += BK) {
-      uint4 av = make_uint4(0, 0, 0, 0);
-      if (a_hit && c0 + a_c < cin)
-        av = *reinterpret_cast<const uint4*>(feats + (size_t)s * cin + c0 + a_c);
-      *reinterpret_cast<uint4*>(&As[a_r * A_LD + a_c]) = av;
-      uint4 bv = make_uint4(0, 0, 0, 0);
-      if (c0 + b_r < cin && n0 + b_c < cout)
-        bv = *reinterpret_cast<const uint4*>(wk + (size_t)(c0 + b_r) * cout + n0 + b_c);
-      *reinterpret_cast<uint4*>(&Bs[b_r * B_LD + b_c]) = bv;
-      __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < BK; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a;
-        wmma::load_matrix_sync(a, &As[(wr * 16) * A_LD + kk], A_LD);
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> b;
-          wmma::load_matrix_sync(b, &Bs[kk * B_LD + wc * 32 + j * 16], B_LD);
-          wmma::mma_sync(acc[j], a, b, acc[j]);
-        }
-      }
-      __syncthreads();
-    }
-  }
-
-#pragma unroll
-  for (int j = 0; j < 2; ++j)
-    wmma::store_matrix_sync(&Cs[(wr * 16) * C_LD + wc * 32 + j * 16], acc[j], C_LD,
-                            wmma::mem_row_major);
+  // the tile's rows, and the taps any of them hits
+  if (tid == 0) *tile_mask = 0u;
+  if (tid < BM) orow[tid] = (m0 + tid < n_out) ? order[m0 + tid] : -1;
   __syncthreads();
-  for (int i = tid; i < BM * BN; i += THREADS) {
-    const int r = i / BN, c = i % BN;
-    if (m0 + r < n_out && n0 + c < cout)
-      out[(size_t)(m0 + r) * cout + n0 + c] = Cs[r * C_LD + c];
+  unsigned m = 0u;
+  if (tid < BM && orow[tid] >= 0) m = static_cast<unsigned>(masks[orow[tid]]);
+  m = __reduce_or_sync(0xffffffffu, m);
+  if ((tid & 31) == 0 && m) atomicOr(tile_mask, m);
+  __syncthreads();
+  const unsigned tmask = *tile_mask;
+  const int ntaps = __popc(tmask);
+  if (tid < 32 && ((tmask >> tid) & 1u)) taps[__popc(tmask & ((1u << tid) - 1u))] = tid;
+  __syncthreads();
+  // source row of every (tap, row) of the tile; -1 for a miss
+  for (int i = tid; i < ntaps * BM; i += THREADS) {
+    const int o = orow[i % BM];
+    int s = -1;
+    if (o >= 0) {
+      s = rows[static_cast<size_t>(taps[i / BM]) * n_out + o];
+      if (static_cast<unsigned>(s) >= static_cast<unsigned>(n_src)) s = -1;
+    }
+    src[i] = s;
   }
+  __syncthreads();
+
+  const int nk = (cin + BK - 1) / BK;
+  const int iters = ntaps * nk;
+
+  // stage `it` = (tap it / nk, channels [c0, c0 + 64)); zeros past cin / cout
+  auto load_stage = [&](int it) {
+    const int t = it / nk;
+    const int c0 = (it - t * nk) * BK;
+    const uint32_t a_s = smem_s + (it % STAGES) * STAGE_BYTES;
+    const uint32_t b_s = a_s + A_BYTES;
+    const int c = tid & 7;                     // 16-byte chunk of a 128-byte row
+    const bool c_ok = c0 + c * 8 < cin;
+#pragma unroll
+    for (int i = 0; i < BM * 8 / THREADS; ++i) {
+      const int r = (tid >> 3) + i * (THREADS / 8);
+      const int s = src[t * BM + r];
+      const bool ok = c_ok && s >= 0;
+      const void* g = ok ? static_cast<const void*>(feats + static_cast<size_t>(s) * cin + c0 + c * 8)
+                         : static_cast<const void*>(w);
+      cp_async16(a_s + r * 128 + ((c ^ (r & 7)) << 4), g, ok ? 16 : 0);
+    }
+    const bf16* wk = w + static_cast<size_t>(taps[t]) * cin * cout;
+    constexpr int CPR = BN / 8;                // 16-byte chunks per K row of B
+#pragma unroll
+    for (int i = 0; i < BK * CPR / THREADS; ++i) {
+      const int q = tid + i * THREADS;
+      const int kr = q / CPR, n = (q % CPR) * 8;
+      const bool ok = c0 + kr < cin && n0 + n < cout;
+      const void* g = ok ? static_cast<const void*>(wk + static_cast<size_t>(c0 + kr) * cout + n0 + n)
+                         : static_cast<const void*>(w);
+      // N-major: 64-column atoms of [64 K rows x 128 bytes], BK * 128 bytes apart
+      cp_async16(b_s + (n >> 6) * (BK * 128) + kr * 128 + ((((n >> 3) & 7) ^ (kr & 7)) << 4),
+                 g, ok ? 16 : 0);
+    }
+  };
+
+  float acc[BN / 2];
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) acc[i] = 0.0f;
+
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < iters) load_stage(s);
+    cp_async_commit();
+  }
+  const int wg = tid / 128;
+  for (int it = 0; it < iters; ++it) {
+    cp_async_wait<STAGES - 2>();
+    // this thread's cp.async writes become visible to wgmma (async proxy)
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();
+    const int c0 = (it % nk) * BK;
+    const int nkk = min(BK / 16, (cin - c0 + 15) / 16);
+    const uint32_t a_s = smem_s + (it % STAGES) * STAGE_BYTES + wg * 64 * 128;
+    const uint32_t b_s = smem_s + (it % STAGES) * STAGE_BYTES + A_BYTES;
+    fence_regs<BN / 2>(acc);
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+    if (nkk == BK / 16) {   // a full slice: no branch between the wgmmas
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk)
+        wgmma<BN>(acc, make_desc(a_s + kk * 32, 16, 1024),
+                  make_desc(b_s + kk * 16 * 128, BK * 128, 1024));
+    } else {
+      for (int kk = 0; kk < nkk; ++kk)
+        wgmma<BN>(acc, make_desc(a_s + kk * 32, 16, 1024),
+                  make_desc(b_s + kk * 16 * 128, BK * 128, 1024));
+    }
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+    // while the tensor cores run: refill the slot the wgmma of it - 1 read
+    // (every thread waited for it before the barrier above)
+    if (it + STAGES - 1 < iters) load_stage(it + STAGES - 1);
+    cp_async_commit();
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+    fence_regs<BN / 2>(acc);
+  }
+
+  // each row to its original position
+  const int warp = (tid & 127) >> 5, lane = tid & 31;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int o = orow[wg * 64 + warp * 16 + (lane >> 2) + h * 8];
+    if (o < 0) continue;
+    float* dst = out + static_cast<size_t>(o) * cout + n0;
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      const int col = j * 8 + (lane & 3) * 2;
+      if (n0 + col < cout)
+        *reinterpret_cast<float2*>(dst + col) = make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+    }
+  }
+}
+
+// host-side facts of each device, read or set once (devices past the last
+// slot are asked on every call)
+constexpr int MAX_DEVICES = 64;
+
+int sm_count(int dev) {
+  static int sms[MAX_DEVICES];
+  int n = dev < MAX_DEVICES ? sms[dev] : 0;
+  if (n == 0) {
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+    if (dev < MAX_DEVICES) sms[dev] = n;
+  }
+  return n;
+}
+
+template <int BN>
+int launch(int dev, const void* feats, int n_src, int cin, const void* rows, int n_out, int k3,
+           const void* w, int cout, const void* order, const void* masks, void* out,
+           cudaStream_t stream) {
+  const int smem = 1024 + STAGES * (A_BYTES + BK * BN * 2) + (k3 * BM + BM + 32 + 1) * 4;
+  // the limit is per device: raise it only past the largest set there so far
+  static int smem_set[MAX_DEVICES];
+  if (dev >= MAX_DEVICES || smem > smem_set[dev]) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        gather_conv_kernel<BN>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (dev < MAX_DEVICES) smem_set[dev] = smem;
+  }
+  dim3 grid((n_out + BM - 1) / BM, (cout + BN - 1) / BN);
+  gather_conv_kernel<BN><<<grid, THREADS, smem, stream>>>(
+      static_cast<const bf16*>(feats), n_src, cin, static_cast<const int*>(rows), n_out, k3,
+      static_cast<const bf16*>(w), cout, static_cast<const int*>(order),
+      static_cast<const int*>(masks), static_cast<float*>(out));
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// feats, w: bf16, 16-byte aligned rows (cin % 8 == 0, cout % 8 == 0 —
-// checked by the Python wrapper). Returns cudaGetLastError().
+// feats, w: bf16, 16-byte aligned rows (cin % 8 == 0, cout % 8 == 0); k3 <= 31;
+// order, masks: i32 [n_out] — all checked by the Python wrapper. Returns a
+// cudaError_t (0 on success).
 extern "C" int fsf_gather_conv(const void* feats, int n_src, int cin,
                                const void* rows, int n_out, int k3,
-                               const void* w, int cout, void* out,
-                               void* stream) {
-  if (n_out > 0) {
-    dim3 grid((n_out + BM - 1) / BM, (cout + BN - 1) / BN);
-    gather_conv_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const __nv_bfloat16*>(feats), n_src, cin,
-        static_cast<const int*>(rows), n_out, k3,
-        static_cast<const __nv_bfloat16*>(w), cout, static_cast<float*>(out));
-  }
-  return static_cast<int>(cudaGetLastError());
+                               const void* w, int cout, const void* order,
+                               const void* masks, void* out, void* stream) {
+  if (n_out <= 0) return static_cast<int>(cudaGetLastError());
+  int dev = 0;
+  cudaGetDevice(&dev);
+  const int sms = sm_count(dev);
+  // widest tile that covers cout, narrowed while the grid would fill less
+  // than half the card
+  const int tiles = (n_out + BM - 1) / BM;
+  int bn = cout > 128 ? 256 : (cout > 64 ? 128 : 64);
+  while (bn > 64 && 2 * tiles * ((cout + bn - 1) / bn) < sms) bn /= 2;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (bn == 256)
+    return launch<256>(dev, feats, n_src, cin, rows, n_out, k3, w, cout, order, masks, out, st);
+  if (bn == 128)
+    return launch<128>(dev, feats, n_src, cin, rows, n_out, k3, w, cout, order, masks, out, st);
+  return launch<64>(dev, feats, n_src, cin, rows, n_out, k3, w, cout, order, masks, out, st);
 }

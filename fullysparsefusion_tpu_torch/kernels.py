@@ -28,12 +28,12 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # name -> (source file, extra nvcc flags, C symbol, argtypes)
 KERNELS = {
     "gather_conv": ("gather_conv.cu", [], "fsf_gather_conv",
-                    [_P, _I, _I, _P, _I, _I, _P, _I, _P, _P]),
+                    [_P, _I, _I, _P, _I, _I, _P, _I, _P, _P, _P, _P]),
     # no FMA contraction anywhere in the CCL distance test
     "ccl": ("ccl.cu", ["--fmad=false"], "fsf_ccl_roots",
             [_P, _P, _P, _I, _I, _P, _P]),
     "nms": ("nms.cu", [], "fsf_nms_keep",
-            [_P, _P, _P, _I, _I, _F, _P, _P]),
+            [_P, _P, _P, _I, _I, _F, _P, _P, _P]),
 }
 
 _BASE_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

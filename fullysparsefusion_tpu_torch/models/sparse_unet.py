@@ -18,10 +18,28 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.sparse_conv import (
-    SparseTensor, build_subm_rulebook, sparse_conv3d, sparse_conv3d_dense,
-    sparse_inverse_conv3d, subm_conv_apply, subm_conv_dense, use_dense_conv,
+    ConvPlan, SparseTensor, build_subm_rulebook, plan_rulebook, sparse_conv3d,
+    sparse_conv3d_dense, sparse_inverse_conv3d, subm_conv_apply, subm_conv_dense,
+    use_dense_conv,
 )
 from .layers import MaskedBatchNorm
+
+
+class SubmRulebook:
+    """A stage's submanifold rulebook rows; their K1 plan is made at the
+    first gather conv that uses them and shared by the stage's other convs
+    (a dense stage never makes it)."""
+
+    def __init__(self, st: SparseTensor):
+        self.rows = build_subm_rulebook(st)
+        self.n_src = st.capacity
+        self._plan: Optional[ConvPlan] = None
+
+    @property
+    def plan(self) -> ConvPlan:
+        if self._plan is None:
+            self._plan = plan_rulebook(self.rows, self.n_src)
+        return self._plan
 
 
 class _ConvBlock(nn.Module):
@@ -41,17 +59,17 @@ class _ConvBlock(nn.Module):
 
 
 class SubMBlock(_ConvBlock):
-    """Submanifold conv through the stage's shared rulebook."""
+    """Submanifold conv through the stage's shared rulebook and its plan."""
 
     def __init__(self, cin, cout, dense_min_occupancy=0.15, **kw):
         super().__init__(cin, cout, **kw)
         self.dense_min_occupancy = dense_min_occupancy
 
-    def forward(self, st: SparseTensor, rows: torch.Tensor) -> SparseTensor:
+    def forward(self, st: SparseTensor, rulebook: "SubmRulebook") -> SparseTensor:
         if use_dense_conv(st, self.cout, self.dense_min_occupancy):
             y = subm_conv_dense(st, self.w, self.kernel_size)
         else:
-            y = subm_conv_apply(st.feats, st.valid, rows, self.w)
+            y = subm_conv_apply(st.feats, st.valid, rulebook.rows, self.w, rulebook.plan)
         return self._finish(st.replace(feats=y))
 
 
@@ -131,7 +149,7 @@ class SparseUNet(nn.Module):
         self.conv_out = SubMBlock(x_dim + stage_out[0], output_channels, **occ)
 
     def forward(self, st: SparseTensor) -> torch.Tensor:
-        rulebooks = [build_subm_rulebook(st)]
+        rulebooks = [SubmRulebook(st)]
         st = self.conv_input(st, rulebooks[0])
         skips = []
         n_stages = len(self.encoder_channels)
@@ -139,7 +157,7 @@ class SparseUNet(nn.Module):
             for j in range(len(widths)):
                 if i > 0 and j == 0:
                     st = getattr(self, f"enc{i}_down")(st)
-                    rulebooks.append(build_subm_rulebook(st))
+                    rulebooks.append(SubmRulebook(st))
                 else:
                     st = getattr(self, f"enc{i}_subm{j}")(st, rulebooks[i])
             skips.append(st)

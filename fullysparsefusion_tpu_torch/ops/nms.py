@@ -1,8 +1,8 @@
 """Rotated multiclass NMS with fixed shapes (port of ``ops/nms.py``).
 
 :func:`nms_keep` is the K3 kernel's wrapper: CUDA tensors launch
-``csrc/nms.cu`` (one block per class channel, all classes in one launch);
-CPU tensors run :func:`nms_keep_plain`.
+``csrc/nms.cu`` (a bitmask pass over every class and row, then one warp per
+class scanning the bits, back to back); CPU tensors run :func:`nms_keep_plain`.
 """
 from __future__ import annotations
 
@@ -12,6 +12,10 @@ import torch
 
 from .. import kernels
 from .geometry import boxes_iou_bev
+
+
+# the scan keeps two blocks of 64 mask rows in a block's shared memory
+NMS_MAX_N = 14336
 
 
 def nms_keep_plain(iou: torch.Tensor, order: torch.Tensor, valid_sorted: torch.Tensor,
@@ -37,7 +41,7 @@ def nms_keep(iou: torch.Tensor, order: torch.Tensor, valid_sorted: torch.Tensor,
     iou [N, N] f32 in the boxes' original order; order [C, N] i32 — each
     class's descending-score order; valid_sorted [C, N] bool in that order.
     Row i of class c is kept iff it is valid and no earlier kept row of c
-    has IoU > ``iou_thr`` with it.
+    has IoU > ``iou_thr`` with it. The kernel takes N ≤ ``NMS_MAX_N``.
     """
     n = iou.shape[0]
     if iou.dtype != torch.float32 or order.dtype != torch.int32 or valid_sorted.dtype != torch.bool:
@@ -51,13 +55,18 @@ def nms_keep(iou: torch.Tensor, order: torch.Tensor, valid_sorted: torch.Tensor,
         raise ValueError("nms_keep: all tensors on one CUDA device (or the CPU)")
     if not (iou.is_contiguous() and order.is_contiguous() and valid_sorted.is_contiguous()):
         raise ValueError("nms_keep: inputs must be contiguous")
+    if n > NMS_MAX_N:
+        raise ValueError(f"nms_keep kernel takes N <= {NMS_MAX_N}, got {n}")
     c = order.shape[0]
-    keep = torch.empty(c, n, dtype=torch.uint8, device=iou.device)
+    words = (n + 63) // 64
+    # scratch of the bitmask pass: mask[c, i, w], 64 later rows per word
+    mask = torch.empty(c, 64 * words, words, dtype=torch.int64, device=iou.device)
+    keep = torch.empty(c, n, dtype=torch.bool, device=iou.device)
     kernels.launch("nms", iou.data_ptr(), order.data_ptr(), valid_sorted.data_ptr(), c, n,
-                   float(iou_thr), keep.data_ptr(),
+                   float(iou_thr), mask.data_ptr(), keep.data_ptr(),
                    torch.cuda.current_stream(iou.device).cuda_stream)
     nms_keep.launches += 1
-    return keep.bool()
+    return keep
 
 
 nms_keep.launches = 0

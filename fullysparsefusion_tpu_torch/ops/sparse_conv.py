@@ -10,13 +10,16 @@ gives the JAX package's rows, because active sets hold unique coordinates;
 here it is one ``searchsorted`` over the sorted active keys.
 
 :func:`gather_conv` is the K1 kernel's wrapper: CUDA tensors launch
-``csrc/gather_conv.cu``, CPU tensors run :func:`gather_conv_plain`.
+``csrc/gather_conv.cu``, CPU tensors run :func:`gather_conv_plain`. The kernel
+takes a rulebook's :class:`ConvPlan` (each output row's hit mask and the rows
+sorted by it), made once per rulebook by :func:`plan_rulebook` and shared by
+every conv that uses the rulebook.
 """
 from __future__ import annotations
 
 import itertools
 from dataclasses import dataclass, replace
-from typing import Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -66,11 +69,46 @@ def gather_conv_plain(feats: torch.Tensor, rows: torch.Tensor, w: torch.Tensor) 
     return out
 
 
-def gather_conv(feats: torch.Tensor, rows: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+# output rows per block of the kernel: a tile of the plan's order
+TILE_ROWS = 128
+
+
+class ConvPlan(NamedTuple):
+    """What the K1 kernel needs of a rulebook beyond its rows."""
+
+    masks: torch.Tensor  # [n_out] i32: bit k set iff rows[k, r] hits
+    order: torch.Tensor  # [n_out] i32: rows stably sorted by mask
+
+
+# [K³, 1] i32 column of 1 << k per (K³, device), made once
+_TAP_BITS = {}
+
+
+def plan_rulebook(rows: torch.Tensor, n_src: int) -> ConvPlan:
+    """Hit masks and mask-sorted order of a rulebook ``rows [K³, n_out]``
+    (miss → ``n_src``). Sorting by mask puts rows that hit the same taps in
+    the same tile of ``TILE_ROWS``, so a tile skips every tap none of its
+    rows hits; rows with no hit (capacity padding) sort first, into tiles
+    that do no tap at all. Torch glue, made once per rulebook."""
+    k3 = rows.shape[0]
+    if k3 > 31:
+        raise ValueError(f"plan_rulebook: at most 31 taps fit an int32 mask, got {k3}")
+    key = (k3, rows.device)
+    if key not in _TAP_BITS:
+        _TAP_BITS[key] = torch.tensor([[1 << k] for k in range(k3)], dtype=torch.int32,
+                                      device=rows.device)
+    masks = torch.where(rows < n_src, _TAP_BITS[key], 0).sum(0, dtype=torch.int32)
+    order = torch.sort(masks, stable=True).indices.to(torch.int32)
+    return ConvPlan(masks=masks, order=order)
+
+
+def gather_conv(feats: torch.Tensor, rows: torch.Tensor, w: torch.Tensor,
+                plan: Optional[ConvPlan] = None) -> torch.Tensor:
     """``Σ_k feats_z[rows[k]] @ w[k]`` → [n_out, Cout] f32.
 
     feats [n_src, Cin] bf16, rows [K³, n_out] i32 (miss → n_src), w [K³,
-    Cin, Cout] bf16. On a CUDA tensor this launches the gather-conv kernel
+    Cin, Cout] bf16; ``plan`` is ``plan_rulebook(rows, n_src)``, made here
+    when not given. On a CUDA tensor this launches the gather-conv kernel
     (Cin and Cout multiples of 8, contiguous inputs); on a CPU tensor it
     runs :func:`gather_conv_plain`. The caller masks by out-validity.
     """
@@ -95,10 +133,17 @@ def gather_conv(feats: torch.Tensor, rows: torch.Tensor, w: torch.Tensor) -> tor
         raise ValueError("gather_conv: inputs must be contiguous")
     if feats.data_ptr() % 16 or w.data_ptr() % 16:
         raise ValueError("gather_conv: feats and w must be 16-byte aligned")
+    if plan is None:
+        plan = plan_rulebook(rows, n_src)
+    for t in plan:
+        if t.dtype != torch.int32 or t.shape != (n_out,) or t.device != feats.device \
+                or not t.is_contiguous():
+            raise ValueError("gather_conv: plan masks and order must be int32 [n_out] on the device")
     out = torch.empty(n_out, cout, dtype=torch.float32, device=feats.device)
     kernels.launch(
         "gather_conv", feats.data_ptr(), n_src, cin, rows.data_ptr(), n_out, k3,
-        w.data_ptr(), cout, out.data_ptr(), torch.cuda.current_stream(feats.device).cuda_stream)
+        w.data_ptr(), cout, plan.order.data_ptr(), plan.masks.data_ptr(), out.data_ptr(),
+        torch.cuda.current_stream(feats.device).cuda_stream)
     gather_conv.launches += 1
     return out
 
@@ -220,10 +265,10 @@ def _bf16(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.bfloat16).contiguous()
 
 
-def subm_conv_apply(feats, valid, rows, w) -> torch.Tensor:
-    """Submanifold conv through a prebuilt rulebook: bf16 operands, f32
-    accumulation, output masked by validity."""
-    out = gather_conv(_bf16(feats), rows, _bf16(w))
+def subm_conv_apply(feats, valid, rows, w, plan: ConvPlan) -> torch.Tensor:
+    """Submanifold conv through a prebuilt rulebook and its plan: bf16
+    operands, f32 accumulation, output masked by validity."""
+    out = gather_conv(_bf16(feats), rows, _bf16(w), plan)
     return out * valid[:, None].to(out.dtype)
 
 
@@ -233,7 +278,8 @@ def sparse_conv3d(st: SparseTensor, w, kernel_size, stride, padding, out_capacit
         st, kernel_size, stride, padding, out_capacity)
     rows = pair_query_rows(out_coords, out_batch, out_valid, st.coords, st.batch, st.valid,
                            st.dims, kernel_size, stride, padding, "mul")
-    out = gather_conv(_bf16(st.feats), rows, _bf16(w)) * out_valid[:, None].float()
+    out = gather_conv(_bf16(st.feats), rows, _bf16(w), plan_rulebook(rows, st.capacity))
+    out = out * out_valid[:, None].float()
     return SparseTensor(feats=out, coords=out_coords, batch=out_batch, valid=out_valid,
                         dims=out_dims, batch_size=st.batch_size)
 
@@ -244,7 +290,8 @@ def sparse_inverse_conv3d(st: SparseTensor, target: SparseTensor, w, kernel_size
     from coarse y where t = y·s − p + k."""
     rows = pair_query_rows(target.coords, target.batch, target.valid, st.coords, st.batch,
                            st.valid, st.dims, kernel_size, stride, padding, "div")
-    out = gather_conv(_bf16(st.feats), rows, _bf16(w)) * target.valid[:, None].float()
+    out = gather_conv(_bf16(st.feats), rows, _bf16(w), plan_rulebook(rows, st.capacity))
+    out = out * target.valid[:, None].float()
     return target.replace(feats=out)
 
 

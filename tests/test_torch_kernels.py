@@ -1,0 +1,166 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on a card.
+
+Every test here is marked ``gpu`` and skips without a CUDA device. The file
+imports torch, numpy and the port only (not the JAX package, which needs
+``flax``), so that it runs on a machine with a card:
+
+    python -m pytest tests/test_torch_kernels.py -m gpu
+
+The scene generators here (``t``, ``_ccl_problems``, ``_boxes``) are shared
+with ``test_torch_ops.py``, which holds the plain versions to the JAX package.
+
+Tolerances: K1 takes bf16 operands whose products are exact in f32, so the
+kernel and the plain version differ only in the order of the f32 sums: 1e-4
+of the output's magnitude. K2 and K3 are bitwise.
+"""
+import numpy as np
+import pytest
+import torch
+
+from fullysparsefusion_tpu_torch.ops import ccl, geometry, nms, sparse_conv
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU; on the card chip_smoke.py runs the kernels")
+    return torch.device("cuda")
+
+
+def t(x):
+    return torch.from_numpy(np.array(x))
+
+
+# --- K1: gather conv ---------------------------------------------------------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_src,n_out,cin,cout", [(1000, 1000, 64, 64), (1000, 700, 128, 128),
+                                                  (300, 1111, 512, 256), (777, 777, 256, 128),
+                                                  (500, 500, 16, 48)])
+def test_gather_conv_kernel_matches_plain(cuda, n_src, n_out, cin, cout):
+    g = torch.Generator().manual_seed(n_src + cin)
+    feats = torch.randn(n_src, cin, generator=g).to(torch.bfloat16)
+    rows = torch.randint(0, 2 * n_src, (27, n_out), generator=g, dtype=torch.int32)
+    rows = torch.where(rows < n_src, rows, torch.full_like(rows, n_src))   # ~half misses
+    rows[:, :64] = n_src                                                   # an all-miss tile
+    w = (torch.randn(27, cin, cout, generator=g) / (27 * cin) ** 0.5).to(torch.bfloat16)
+    args = [a.to(cuda) for a in (feats, rows, w)]
+    got = sparse_conv.gather_conv(*args)
+    ref = sparse_conv.gather_conv_plain(*args)
+    torch.cuda.synchronize()
+    assert float((got - ref).abs().max()) <= 1e-4 * max(1.0, float(ref.abs().max()))
+    assert not got[:64].any()
+
+
+def _adversarial_rulebook(case, g):
+    """(feats, rows, w) for the K1 kernel's edge cases."""
+    n_src, n_out, cin, cout = 700, 1000, 64, 128
+    if case == "cin16_cout48":
+        cin, cout = 16, 48
+    feats = torch.randn(n_src, cin, generator=g).to(torch.bfloat16)
+    rows = torch.randint(0, 3 * n_src, (27, n_out), generator=g, dtype=torch.int32)
+    rows = torch.where(rows < n_src, rows, torch.full_like(rows, n_src))
+    if case == "every_slot_misses":
+        rows[:] = n_src
+    elif case == "one_hit_per_row":
+        tap = torch.randint(0, 27, (n_out,), generator=g)
+        hit = torch.randint(0, n_src, (n_out,), generator=g, dtype=torch.int32)
+        rows[:] = n_src
+        rows[tap, torch.arange(n_out)] = hit
+    elif case == "padding_tiles":
+        rows[:, 100:500] = n_src                   # 400 rows with no hit: 3 all-miss tiles
+    w = (torch.randn(27, cin, cout, generator=g) / (27 * cin) ** 0.5).to(torch.bfloat16)
+    return feats, rows, w
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["every_slot_misses", "one_hit_per_row", "padding_tiles",
+                                  "cin16_cout48"])
+def test_gather_conv_kernel_adversarial_rulebooks(cuda, case):
+    """n_out = 1000 is off the 128-row tile in every case; two runs are
+    bitwise equal, with the plan given or made by the wrapper."""
+    args = [a.to(cuda) for a in _adversarial_rulebook(case, torch.Generator().manual_seed(1))]
+    plan = sparse_conv.plan_rulebook(args[1], args[0].shape[0])
+    got = sparse_conv.gather_conv(*args, plan)
+    again = sparse_conv.gather_conv(*args)
+    ref = sparse_conv.gather_conv_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert float((got - ref).abs().max()) <= 1e-4 * max(1.0, float(ref.abs().max()))
+    if case == "every_slot_misses":
+        assert not got.any()
+
+# --- K2: CCL roots -----------------------------------------------------------
+
+
+def _ccl_problems(seed, g=3, n=96):
+    rng = np.random.default_rng(seed)
+    xy = rng.uniform(0, 9, (g, n, 2)).astype(np.float32)
+    # away from the random points: a chain at d² == 1 (apart) and one at 0.99 (joined)
+    xy[0, :10] = np.arange(10, dtype=np.float32)[:, None] * np.float32([1.0, 0.0]) - 30
+    xy[0, 10:20] = np.arange(10, dtype=np.float32)[:, None] * np.float32([0.99, 0.0]) - 60
+    batch = rng.integers(0, 2, (g, n)).astype(np.int32)
+    batch[0, :20] = 0
+    valid = rng.random((g, n)) > 0.15
+    valid[0, :20] = True
+    valid[2] = False                                  # an all-invalid problem
+    return xy, batch, valid
+
+
+@pytest.mark.gpu
+def test_ccl_kernel_matches_plain(cuda):
+    xy, batch, valid = _ccl_problems(0, g=6, n=1024)
+    args = [t(a).to(cuda) for a in (xy, batch, valid)]
+    assert torch.equal(ccl.ccl_roots(*args).cpu(), ccl.ccl_roots_plain(*args).cpu())
+
+
+# --- K3: NMS -----------------------------------------------------------------
+
+
+def _boxes(rng, n, extent=6.0):
+    b = np.zeros((n, 9), np.float32)
+    b[:, :2] = rng.uniform(-extent, extent, (n, 2))
+    b[:, 2] = rng.uniform(-1, 0, n)
+    b[:, 3:6] = rng.uniform(0.5, 3.0, (n, 3))
+    b[:, 6] = rng.uniform(-np.pi, np.pi, n)
+    b[:, 7:] = rng.normal(size=(n, 2))
+    return b
+
+
+@pytest.mark.gpu
+def test_nms_kernel_matches_plain(cuda):
+    rng = np.random.default_rng(0)
+    n, c = 1280, 10
+    boxes = t(_boxes(rng, n, extent=20.0)).to(cuda)
+    scores = t(rng.random((c, n)).astype(np.float32)).to(cuda)
+    valid = t(rng.random((c, n)) > 0.1).to(cuda)
+    iou = geometry.boxes_iou_bev(boxes, boxes).contiguous()
+    order, vs = nms.class_orders(scores, valid)
+    assert torch.equal(nms.nms_keep(iou, order, vs.contiguous(), 0.25).cpu(),
+                       nms.nms_keep_plain(iou, order, vs, 0.25).cpu())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,c,ties,invalid_classes", [(1000, 3, True, (1,)), (77, 2, False, (0, 1)),
+                                                     (1280, 10, True, ()), (1, 1, False, ())])
+def test_nms_kernel_edge_cases(cuda, n, c, ties, invalid_classes):
+    """N off the 64-row word, tied IoUs and scores, classes with no valid row."""
+    rng = np.random.default_rng(n)
+    m = rng.random((n, n)).astype(np.float32)
+    iou = (m + m.T) / 2
+    if ties:
+        iou = np.round(iou * 8) / 8               # IoU equal to the threshold: `>` decides
+    np.fill_diagonal(iou, 1.0)
+    scores = rng.random((c, n)).astype(np.float32)
+    if ties:
+        scores = np.round(scores * 4) / 4
+    valid = rng.random((c, n)) > 0.3
+    valid[list(invalid_classes)] = False
+    order, vs = nms.class_orders(t(scores).to(cuda), t(valid).to(cuda))
+    iou = t(iou).to(cuda)
+    for thr in (0.25, 0.5, 0.875):
+        got = nms.nms_keep(iou, order, vs.contiguous(), thr)
+        assert got.dtype == torch.bool
+        assert torch.equal(got.cpu(), nms.nms_keep_plain(iou, order, vs, thr).cpu())
+        assert not got[list(invalid_classes)].any()

@@ -2,8 +2,8 @@
 voxelization, compaction, geometry, projection, and the plain versions of
 kernels K2 (CCL roots) and K3 (NMS keep masks). Integer and bool outputs
 must be equal; float outputs agree within 1e-5 (f32 on both sides, sums in
-another order). GPU-marked tests hold the CUDA kernels to the plain versions
-and skip without a card."""
+another order). ``test_torch_kernels.py`` holds the CUDA kernels to the plain
+versions on a card."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -22,19 +22,9 @@ from fullysparsefusion_tpu.utils.gather import masked_gather as j_masked_gather
 from fullysparsefusion_tpu_torch.ops import ccl, geometry, nms, projection, segment
 from fullysparsefusion_tpu_torch.ops.voxelize import voxelize_points
 from fullysparsefusion_tpu_torch.utils.gather import masked_gather
+from test_torch_kernels import _boxes, _ccl_problems, t
 
 F32_TOL = 1e-5
-
-
-@pytest.fixture
-def cuda():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA GPU; on the card chip_smoke.py runs the kernels")
-    return torch.device("cuda")
-
-
-def t(x):
-    return torch.from_numpy(np.array(x))
 
 
 def eq(a, b):
@@ -128,20 +118,6 @@ def _union_find_roots(xy, batch, valid):
                      if valid[i] else -1 for i in range(n)])
 
 
-def _ccl_problems(seed, g=3, n=96):
-    rng = np.random.default_rng(seed)
-    xy = rng.uniform(0, 9, (g, n, 2)).astype(np.float32)
-    # away from the random points: a chain at d² == 1 (apart) and one at 0.99 (joined)
-    xy[0, :10] = np.arange(10, dtype=np.float32)[:, None] * np.float32([1.0, 0.0]) - 30
-    xy[0, 10:20] = np.arange(10, dtype=np.float32)[:, None] * np.float32([0.99, 0.0]) - 60
-    batch = rng.integers(0, 2, (g, n)).astype(np.int32)
-    batch[0, :20] = 0
-    valid = rng.random((g, n)) > 0.15
-    valid[0, :20] = True
-    valid[2] = False                                  # an all-invalid problem
-    return xy, batch, valid
-
-
 @pytest.mark.parametrize("seed", [0, 1])
 def test_ccl_roots_plain_matches_union_find_and_jax(seed):
     xy, batch, valid = _ccl_problems(seed)
@@ -155,13 +131,6 @@ def test_ccl_roots_plain_matches_union_find_and_jax(seed):
                                        jnp.asarray(valid[gi]), 1.0)
         eq(labels[gi], ref)
     assert len(set(roots[0, :10].tolist())) == 10 and len(set(roots[0, 10:20].tolist())) == 1
-
-
-@pytest.mark.gpu
-def test_ccl_kernel_matches_plain(cuda):
-    xy, batch, valid = _ccl_problems(0, g=6, n=1024)
-    args = [t(a).to(cuda) for a in (xy, batch, valid)]
-    assert torch.equal(ccl.ccl_roots(*args).cpu(), ccl.ccl_roots_plain(*args).cpu())
 
 
 # --- K3: NMS ---------------------------------------------------------------
@@ -196,16 +165,6 @@ def test_nms_keep_plain_matches_pallas_interpret_64():
     eq(got, nms_scan_pallas(jnp.asarray(iou), jnp.asarray(valid), 0.6, interpret=True))
 
 
-def _boxes(rng, n, extent=6.0):
-    b = np.zeros((n, 9), np.float32)
-    b[:, :2] = rng.uniform(-extent, extent, (n, 2))
-    b[:, 2] = rng.uniform(-1, 0, n)
-    b[:, 3:6] = rng.uniform(0.5, 3.0, (n, 3))
-    b[:, 6] = rng.uniform(-np.pi, np.pi, n)
-    b[:, 7:] = rng.normal(size=(n, 2))
-    return b
-
-
 def test_multiclass_nms_bev_batched_matches_jax():
     rng = np.random.default_rng(4)
     n, c = 120, 4
@@ -221,19 +180,6 @@ def test_multiclass_nms_bev_batched_matches_jax():
     eq(got.valid, ref.valid), eq(got.labels, ref.labels)
     close(got.boxes, ref.boxes), close(got.scores, ref.scores)
     assert 0 < int(got.valid.sum()) < 300     # below max_num: the NMS, not the cap, decides
-
-
-@pytest.mark.gpu
-def test_nms_kernel_matches_plain(cuda):
-    rng = np.random.default_rng(0)
-    n, c = 1280, 10
-    boxes = t(_boxes(rng, n, extent=20.0)).to(cuda)
-    scores = t(rng.random((c, n)).astype(np.float32)).to(cuda)
-    valid = t(rng.random((c, n)) > 0.1).to(cuda)
-    iou = geometry.boxes_iou_bev(boxes, boxes).contiguous()
-    order, vs = nms.class_orders(scores, valid)
-    assert torch.equal(nms.nms_keep(iou, order, vs.contiguous(), 0.25).cpu(),
-                       nms.nms_keep_plain(iou, order, vs, 0.25).cpu())
 
 
 # --- geometry and projection -----------------------------------------------

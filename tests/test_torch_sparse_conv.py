@@ -1,8 +1,9 @@
 """The PyTorch port's sparse convolution against the JAX package's on the CPU:
 rulebook rows, strided output sets and pair rows must be exactly equal; the
 plain version of kernel K1 (gather conv) is held to ``_gather_conv`` and to
-the Pallas ``window_gather_conv`` in interpret mode. GPU-marked tests hold the
-CUDA kernel to the plain version and skip without a card.
+the Pallas ``window_gather_conv`` in interpret mode, and its per-rulebook plan
+to a numpy reference. ``test_torch_kernels.py`` holds the CUDA kernel to the
+plain version on a card.
 
 Tolerances: K1 takes bf16 operands whose products are exact in f32, so the
 two packages differ only in the order of the f32 sums: 1e-5 relative to the
@@ -22,13 +23,6 @@ from fullysparsefusion_tpu_torch.ops import sparse_conv as tsc
 K1_TOL = 1e-5
 BF16_TOL = 4e-3
 K, S = (3, 3, 3), (2, 2, 2)
-
-
-@pytest.fixture
-def cuda():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA GPU; on the card chip_smoke.py runs the kernels")
-    return torch.device("cuda")
 
 
 def _active_set(seed, cin, dims=(16, 16, 8), batch_size=2, n=420, cap=512):
@@ -167,6 +161,57 @@ def test_gather_conv_all_miss_tile_is_zero():
     _close(got, ref, K1_TOL)
 
 
+def _np_masks(rows, n_src):
+    hit = np.asarray(rows) < n_src
+    return (hit.astype(np.int64) << np.arange(hit.shape[0])[:, None]).sum(0)
+
+
+@pytest.mark.parametrize("kind", ["subm", "inverse"])
+def test_plan_rulebook_sorts_rows_into_tiles_by_hit_mask(kind):
+    """The K1 plan on a subm and an inverse rulebook with 340 rows of capacity
+    padding: the order is a permutation sorting the numpy bitmasks stably;
+    every tile's OR covers its rows' hits; the padding fills all-miss tiles;
+    and the conv over the permuted rows, written back through the order,
+    equals the conv over the rows and the Pallas window kernel."""
+    cin, cout = 64, 32
+    jst, tst = _active_set(10, cin, n=300, cap=640)
+    if kind == "subm":
+        jf, tf, n_src = jst.feats, tst.feats, tst.capacity
+        rows = tsc.build_subm_rulebook(tst)
+    else:
+        _, (tc, tb, tv, tdims) = _strided(jst, tst)
+        n_src = 256
+        coarse = np.random.default_rng(11).normal(size=(n_src, cin)).astype(jnp.bfloat16)
+        jf, tf = jnp.asarray(coarse), _bf16(coarse)
+        rows = tsc.pair_query_rows(tst.coords, tst.batch, tst.valid, tc, tb, tv, tdims,
+                                   K, S, (1, 1, 1), "div")
+    n_out = rows.shape[1]
+    plan = tsc.plan_rulebook(rows, n_src)
+    assert plan.masks.dtype == plan.order.dtype == torch.int32
+    masks, order = plan.masks.numpy(), plan.order.numpy()
+    np.testing.assert_array_equal(masks, _np_masks(rows, n_src))
+    np.testing.assert_array_equal(order, np.argsort(masks, kind="stable"))
+    np.testing.assert_array_equal(np.sort(order), np.arange(n_out))
+
+    tiles = masks[order].reshape(-1, tsc.TILE_ROWS)        # 640 rows: 5 whole tiles
+    tile_or = np.bitwise_or.reduce(tiles, axis=1)
+    assert not (tiles & ~tile_or[:, None]).any()
+    n_pad = int((~tst.valid).sum())
+    assert not masks[~tst.valid.numpy()].any()
+    assert (tile_or == 0).sum() == n_pad // tsc.TILE_ROWS == 2 and tile_or[2:].all()
+
+    w = _weights(12, cin, cout)
+    direct = tsc.gather_conv_plain(tf, rows, _bf16(w))
+    permuted = tsc.gather_conv_plain(tf, rows[:, plan.order.long()], _bf16(w))
+    back = torch.empty_like(permuted)
+    back[plan.order.long()] = permuted
+    _close(back, direct.numpy(), K1_TOL)
+    ref = window_gather_conv(jf, jnp.asarray(rows.numpy()), jnp.asarray(w), w_size=256, blk=128,
+                             interpret=True)
+    _close(back, ref, K1_TOL)
+    assert direct.abs().sum() > 0
+
+
 def test_strided_and_inverse_convs_match_jax():
     cin, cout = 64, 32
     jst, tst = _active_set(7, cin)
@@ -216,22 +261,3 @@ def test_dense_or_gather_dispatch_matches_jax(dims, cap, dense):
                          batch=torch.zeros(cap, dtype=torch.int32),
                          valid=torch.zeros(cap, dtype=torch.bool), dims=dims, batch_size=b)
     assert tsc.use_dense_conv(p, 128) == jsc.use_dense_conv(j, 128) == dense
-
-
-@pytest.mark.gpu
-@pytest.mark.parametrize("n_src,n_out,cin,cout", [(1000, 1000, 64, 64), (1000, 700, 128, 128),
-                                                  (300, 1111, 512, 256), (777, 777, 256, 128),
-                                                  (500, 500, 16, 48)])
-def test_gather_conv_kernel_matches_plain(cuda, n_src, n_out, cin, cout):
-    g = torch.Generator().manual_seed(n_src + cin)
-    feats = torch.randn(n_src, cin, generator=g).to(torch.bfloat16)
-    rows = torch.randint(0, 2 * n_src, (27, n_out), generator=g, dtype=torch.int32)
-    rows = torch.where(rows < n_src, rows, torch.full_like(rows, n_src))   # ~half misses
-    rows[:, :64] = n_src                                                   # an all-miss tile
-    w = (torch.randn(27, cin, cout, generator=g) / (27 * cin) ** 0.5).to(torch.bfloat16)
-    args = [a.to(cuda) for a in (feats, rows, w)]
-    got = tsc.gather_conv(*args)
-    ref = tsc.gather_conv_plain(*args)
-    torch.cuda.synchronize()
-    assert float((got - ref).abs().max()) <= 1e-4 * max(1.0, float(ref.abs().max()))
-    assert not got[:64].any()

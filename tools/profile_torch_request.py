@@ -15,6 +15,9 @@ weights, seed 0) on its bench-scale scene (seed 0), warms up, then:
 2. kernels: ``torch.profiler`` over one request; device time by kernel name
    (top 15) and the device's busy share (the sum of kernel times over the
    request's stream time).
+3. k1_plan: the per-rulebook glue of the gather-conv kernel
+   (``plan_rulebook``): its calls per request, and the device launches and
+   stream time of each call, from ``torch.profiler`` around the call alone.
 
 Prints one JSON object per line; exits non-zero without a CUDA device.
 """
@@ -154,7 +157,46 @@ def main() -> int:
                       "kernel_launches": sum(v[1] for v in by_kernel.values()),
                       "top": [{"name": k[:90], "ms": round(v[0], 3), "calls": v[1]}
                               for k, v in top]}), flush=True)
+    print(json.dumps(plan_glue(request)), flush=True)
     return 0
+
+
+def plan_glue(request):
+    """Launches and time that K1's per-rulebook plans add to one request."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from fullysparsefusion_tpu_torch.models import sparse_unet
+    from fullysparsefusion_tpu_torch.ops import sparse_conv
+
+    orig = sparse_conv.plan_rulebook
+    calls = []
+
+    def recorder(rows, n_src):
+        calls.append((rows.clone(), n_src))
+        return orig(rows, n_src)
+
+    sparse_conv.plan_rulebook = sparse_unet.plan_rulebook = recorder
+    try:
+        request()
+    finally:
+        sparse_conv.plan_rulebook = sparse_unet.plan_rulebook = orig
+    per_call = []
+    for rows, n_src in calls:
+        orig(rows, n_src)
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            start.record()
+            orig(rows, n_src)
+            end.record()
+            torch.cuda.synchronize()
+        launches = sum(1 for ev in prof.events()
+                       if ev.device_type == torch.autograd.DeviceType.CUDA)
+        per_call.append({"n_out": rows.shape[1], "launches": launches,
+                         "ms": round(start.elapsed_time(end), 4)})
+    return {"phase": "k1_plan", "calls": len(per_call),
+            "launches": sum(c["launches"] for c in per_call),
+            "ms": round(sum(c["ms"] for c in per_call), 4), "per_call": per_call}
 
 
 if __name__ == "__main__":
