@@ -15,10 +15,14 @@ Phases, each of which ends the script with a non-zero exit on failure:
    kernels' launch counters are zeroed just before and read just after;
 4. kernels: every kernel call of one request is captured and replayed
    against its plain version on the GPU (K1 within a stated tolerance, K2 and
-   K3 bitwise), with both timed by CUDA events and set beside the least time
-   the card could take (``bound_ms``); K1 also runs adversarial rulebooks
-   made on the card (an all-miss tile, every slot a miss, exactly one hit per
-   row, ``n_out`` off the tile, Cin 16 / Cout 48).
+   K3 bitwise), each kernel timed on the device by replaying a CUDA graph of
+   its calls (the eager loop beside it as ``eager_ms``), the plain versions
+   eagerly, and set beside the least time the card could take (``bound_ms``);
+   K1 also runs adversarial rulebooks made on the card (an all-miss tile,
+   every slot a miss, exactly one hit per row, ``n_out`` off the tile, Cin 16
+   / Cout 48), K2 the problems of ``synthetic.ccl_problem_arrays`` (the
+   reversed chain, one component of all N nodes, N = 1,000 and 8,192,
+   coincident points, mixed batch ids, all invalid), each timed.
 
 The last lines are a ``{"kernels": [...]}`` JSON object, the card's name and
 power limit from ``nvidia-smi``, and ``{"ok": true, "device": {...}}``.
@@ -28,6 +32,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import functools
 import json
 import subprocess
 import sys
@@ -66,19 +71,42 @@ def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
 
 
-def time_ms(fn, reps: int) -> float:
-    """Mean ms of ``fn()`` over ``reps`` back-to-back calls (CUDA events,
-    after one warm-up call; L2 stays warm between calls)."""
-    fn()
-    torch.cuda.synchronize()
+def _event_ms(run, reps: int) -> float:
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
-    for _ in range(reps):
-        fn()
+    run()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def time_ms(fn, reps: int) -> float:
+    """Mean device ms of a kernel call ``fn()``: after one warm-up call,
+    ``reps`` calls are captured into one CUDA graph, whose replay is timed
+    with CUDA events, so the host's launch work does not count (L2 stays
+    warm between calls)."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    return _event_ms(graph.replay, reps)
+
+
+def eager_ms(fn, reps: int) -> float:
+    """Mean ms of ``fn()`` over ``reps`` back-to-back eager calls (CUDA
+    events, after one warm-up call): host-bound when a call is short."""
+    fn()
+    torch.cuda.synchronize()
+
+    def run():
+        for _ in range(reps):
+            fn()
+    return _event_ms(run, reps)
 
 
 @contextlib.contextmanager
@@ -263,6 +291,54 @@ def adversarial_gather_conv(feats, rows, w):
          "max_abs_err": errs})
 
 
+def components(roots) -> list:
+    """Components per problem of a [G, N] roots tensor (-1 invalid)."""
+    return [int(((r == torch.arange(r.numel(), device=r.device)) & (r >= 0)).sum())
+            for r in roots]
+
+
+def check_ccl_roots(xy, batch, valid, what: str):
+    """K2 against its plain version, bitwise, and two runs against each
+    other. Returns the roots and the plain version's sweeps."""
+    from fullysparsefusion_tpu_torch.ops import ccl
+
+    got = ccl.ccl_roots(xy, batch, valid)
+    again = ccl.ccl_roots(xy, batch, valid)
+    ref = ccl.ccl_roots_plain(xy, batch, valid)
+    if not torch.equal(got, ref):
+        fail(f"ccl_roots differs from its plain version on {what} at "
+             f"{int((got != ref).sum())} nodes")
+    if not torch.equal(got, again):
+        fail(f"ccl_roots differs between two runs on {what}")
+    return got, ccl.ccl_roots_plain.sweeps
+
+
+# (case of synthetic.ccl_problem_arrays, G, N)
+CCL_ADVERSARIAL = (("reversed_chain", 6, 1024), ("grid", 6, 1024), ("random", 6, 1000),
+                   ("random", 1, 8192), ("coincident", 6, 1024), ("mixed_batch", 6, 1024),
+                   ("all_invalid", 6, 1024))
+
+
+def adversarial_ccl_roots():
+    """K2 on the inputs that are hard for a sweep-based CCL (the reversed
+    chain: one sweep per hop; one component of all N nodes), N off the word
+    and at the wrapper's largest, complete graphs, batch ids that split them
+    and all-invalid nodes: bitwise against the plain version, each timed."""
+    from fullysparsefusion_tpu_torch import synthetic as S
+    from fullysparsefusion_tpu_torch.ops import ccl
+
+    cases = {}
+    for case, g, n in CCL_ADVERSARIAL:
+        xy, batch, valid = (torch.as_tensor(a, device="cuda")
+                            for a in S.ccl_problem_arrays(case, g, n))
+        got, sweeps = check_ccl_roots(xy, batch, valid, f"{case} G={g} N={n}")
+        cases[f"{case}_g{g}_n{n}"] = {
+            "components": components(got), "plain_sweeps": sweeps,
+            "ms": round(time_ms(functools.partial(ccl.ccl_roots, xy, batch, valid), 20), 5)}
+    log({"phase": "kernel_adversarial", "kernel": "ccl_roots", "tolerance": 0,
+         "cases": cases})
+
+
 def check_kernels(model, request):
     """Replay every kernel call of one request against its plain version."""
     from fullysparsefusion_tpu_torch.ops import ccl, nms, sparse_conv
@@ -286,14 +362,16 @@ def check_kernels(model, request):
         flop = 2.0 * hits * cin * cout
         byte = 2.0 * n_src * cin + 4.0 * k3 * n_out + 2.0 * k3 * cin * cout + 4.0 * n_out * cout
         ms = time_ms(lambda: sparse_conv.gather_conv(feats, rows, w, plan), 20)
-        plain_ms = time_ms(lambda: sparse_conv.gather_conv_plain(feats, rows, w), 5)
+        eager = eager_ms(lambda: sparse_conv.gather_conv(feats, rows, w, plan), 20)
+        plain_ms = eager_ms(lambda: sparse_conv.gather_conv_plain(feats, rows, w), 5)
         bound = max(flop / PEAK_BF16_FLOPS, byte / PEAK_BYTES) * 1e3
         taps = tile_taps(plan, k3)
         rows_out.append({"n_src": n_src, "n_out": n_out, "cin": cin, "cout": cout, "hits": hits,
                          "hit_share": round(hits / (k3 * n_out), 4),
                          "taps_per_tile": round(float(taps.float().mean()), 3),
                          "all_miss_tiles": int((taps == 0).sum()), "tiles": int(taps.numel()),
-                         "ms": round(ms, 4), "plain_ms": round(plain_ms, 4),
+                         "ms": round(ms, 4), "eager_ms": round(eager, 4),
+                         "plain_ms": round(plain_ms, 4),
                          "bound_ms": round(bound, 5), "max_abs_err": err})
         for k, v in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", bound), ("flop", flop),
                      ("byte", byte)):
@@ -308,21 +386,22 @@ def check_kernels(model, request):
 
     # K2: CCL roots (bitwise)
     (xy, batch, valid), = calls["ccl_roots"]
-    got = ccl.ccl_roots(xy, batch, valid)
-    ref = ccl.ccl_roots_plain(xy, batch, valid)
-    if not torch.equal(got, ref):
-        fail(f"ccl_roots differs from its plain version at {int((got != ref).sum())} nodes")
+    got, sweeps = check_ccl_roots(xy, batch, valid, "the request's call")
     g, n = valid.shape
     same = (batch[:, :, None] == batch[:, None, :]) & valid[:, :, None] & valid[:, None, :]
     flop = 5.0 * float(same.sum())       # one distance test per valid same-batch pair
     byte = g * n * (8 + 4 + 1 + 4)
     bound = max(flop / PEAK_F32_FLOPS, byte / PEAK_BYTES) * 1e3
+    call = functools.partial(ccl.ccl_roots, xy, batch, valid)
     results["ccl_roots"] = dict(
-        max_abs_err=0.0, ms=time_ms(lambda: ccl.ccl_roots(xy, batch, valid), 20),
-        plain_ms=time_ms(lambda: ccl.ccl_roots_plain(xy, batch, valid), 3), bound_ms=bound,
+        max_abs_err=0.0, ms=time_ms(call, 20),
+        plain_ms=eager_ms(lambda: ccl.ccl_roots_plain(xy, batch, valid), 3), bound_ms=bound,
         bound_by="operations" if flop / PEAK_F32_FLOPS > byte / PEAK_BYTES else "bytes")
     log({"phase": "kernel_calls", "kernel": "ccl_roots", "G": g, "N": n,
-         "valid_nodes": int(valid.sum())})
+         "valid_per_problem": valid.sum(1).tolist(), "components": components(got),
+         "plain_sweeps": sweeps, "ms": round(results["ccl_roots"]["ms"], 5),
+         "eager_ms": round(eager_ms(call, 20), 5)})
+    adversarial_ccl_roots()
 
     # K3: NMS keep masks (bitwise)
     (iou, order, vs, thr), = calls["nms_keep"]
@@ -335,12 +414,14 @@ def check_kernels(model, request):
     flop = float(((n - 1 - pos)[None, :] * got).sum())   # one compare per later row, per kept row
     byte = 4.0 * n * n + c * n * (4 + 1 + 1)
     bound = max(flop / PEAK_F32_FLOPS, byte / PEAK_BYTES) * 1e3
+    call = functools.partial(nms.nms_keep, iou, order, vs, thr)
     results["nms_keep"] = dict(
-        max_abs_err=0.0, ms=time_ms(lambda: nms.nms_keep(iou, order, vs, thr), 20),
-        plain_ms=time_ms(lambda: nms.nms_keep_plain(iou, order, vs, thr), 3), bound_ms=bound,
+        max_abs_err=0.0, ms=time_ms(call, 20),
+        plain_ms=eager_ms(lambda: nms.nms_keep_plain(iou, order, vs, thr), 3), bound_ms=bound,
         bound_by="operations" if flop / PEAK_F32_FLOPS > byte / PEAK_BYTES else "bytes")
     log({"phase": "kernel_calls", "kernel": "nms_keep", "C": c, "N": n,
-         "kept": int(got.sum()), "valid": int(vs.sum())})
+         "kept": int(got.sum()), "valid": int(vs.sum()),
+         "ms": round(results["nms_keep"]["ms"], 5), "eager_ms": round(eager_ms(call, 20), 5)})
     return results
 
 

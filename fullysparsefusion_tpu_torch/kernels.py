@@ -31,7 +31,7 @@ KERNELS = {
                     [_P, _I, _I, _P, _I, _I, _P, _I, _P, _P, _P, _P]),
     # no FMA contraction anywhere in the CCL distance test
     "ccl": ("ccl.cu", ["--fmad=false"], "fsf_ccl_roots",
-            [_P, _P, _P, _I, _I, _P, _P]),
+            [_P, _P, _P, _I, _I, _P, _P, _P]),
     "nms": ("nms.cu", [], "fsf_nms_keep",
             [_P, _P, _P, _I, _I, _F, _P, _P, _P]),
 }

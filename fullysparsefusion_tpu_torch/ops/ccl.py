@@ -3,20 +3,25 @@
 Two nodes connect iff both are valid, share a batch id and their xy
 distance is below the threshold. Labels are compact and ordered by each
 component's minimum node index. :func:`ccl_roots` is the K2 kernel's
-wrapper: CUDA tensors launch ``csrc/ccl.cu``, CPU tensors run
-:func:`ccl_roots_plain`; the compact relabelling stays in torch.
+wrapper: CUDA tensors launch ``csrc/ccl.cu`` (adjacency bits, then a
+union-find per problem), CPU tensors run :func:`ccl_roots_plain`; the
+compact relabelling stays in torch. Both are exact for any component
+diameter.
 """
 from __future__ import annotations
 
 import torch
 
 from .. import kernels
-from .segment import unique_segments
+
+# the kernel keeps parent[N] in a block's shared memory
+CCL_MAX_N = 8192
 
 
 def ccl_roots_plain(xy: torch.Tensor, batch: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     """Plain version of :func:`ccl_roots`: dense [G, N, N] adjacency, then
-    min-label propagation with pointer jumping until nothing changes."""
+    min-label propagation with pointer jumping until nothing changes. The
+    sweeps the last call took are left in ``ccl_roots_plain.sweeps``."""
     g, n = valid.shape
     d2 = ((xy[:, :, None, :] - xy[:, None, :, :]) ** 2).sum(-1)
     adj = (d2 < 1.0) & (batch[:, :, None] == batch[:, None, :]) \
@@ -25,7 +30,9 @@ def ccl_roots_plain(xy: torch.Tensor, batch: torch.Tensor, valid: torch.Tensor) 
     big = torch.tensor(n, dtype=torch.int64, device=xy.device)
     ar = torch.arange(n, device=xy.device).expand(g, n)
     labels = torch.where(valid, ar, big)
+    ccl_roots_plain.sweeps = 0
     while True:
+        ccl_roots_plain.sweeps += 1
         new = torch.where(adj, labels[:, None, :], big).amin(dim=2)
         new = torch.minimum(new, labels)
         jumped = torch.gather(labels, 1, new.clamp(max=n - 1))
@@ -34,6 +41,9 @@ def ccl_roots_plain(xy: torch.Tensor, batch: torch.Tensor, valid: torch.Tensor) 
             break
         labels = new
     return torch.where(valid, labels, torch.full_like(labels, -1)).to(torch.int32)
+
+
+ccl_roots_plain.sweeps = 0
 
 
 def ccl_roots(xy: torch.Tensor, batch: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
@@ -54,13 +64,17 @@ def ccl_roots(xy: torch.Tensor, batch: torch.Tensor, valid: torch.Tensor) -> tor
     if xy.device.type != "cuda" or batch.device != xy.device or valid.device != xy.device:
         raise ValueError("ccl_roots: all tensors on one CUDA device (or the CPU)")
     g, n = valid.shape
-    if n > 8192:
-        raise ValueError(f"ccl_roots kernel holds N ≤ 8192 nodes in shared memory, got {n}")
+    if n > CCL_MAX_N:
+        raise ValueError(f"ccl_roots kernel takes N <= {CCL_MAX_N}, got {n}")
     if not (xy.is_contiguous() and batch.is_contiguous() and valid.is_contiguous()):
         raise ValueError("ccl_roots: inputs must be contiguous")
+    # scratch of the adjacency pass: bits[g, i, w], bit b set iff 32 w + b > i
+    # is adjacent to i
+    bits = torch.empty(g, n, (n + 31) // 32, dtype=torch.int32, device=xy.device)
     roots = torch.empty(g, n, dtype=torch.int32, device=xy.device)
     kernels.launch("ccl", xy.data_ptr(), batch.data_ptr(), valid.data_ptr(), g, n,
-                   roots.data_ptr(), torch.cuda.current_stream(xy.device).cuda_stream)
+                   bits.data_ptr(), roots.data_ptr(),
+                   torch.cuda.current_stream(xy.device).cuda_stream)
     ccl_roots.launches += 1
     return roots
 
@@ -71,11 +85,13 @@ ccl_roots.launches = 0
 def connected_components_bev_batched(xy: torch.Tensor, batch_idx: torch.Tensor,
                                      valid: torch.Tensor) -> torch.Tensor:
     """Compact labels [G, N] (-1 invalid) for G independent problems whose
-    coordinates are pre-scaled so connectivity is ``dist < 1``."""
+    coordinates are pre-scaled so connectivity is ``dist < 1``: a component's
+    label is the rank of its root (its minimum node index) among the
+    problem's roots, all problems in one pass and no sort."""
     roots = ccl_roots(xy.contiguous(), batch_idx.to(torch.int32).contiguous(),
-                      valid.contiguous())
-    out = []
-    for lab, v in zip(roots, valid):
-        seg = unique_segments(lab, v, lab.shape[0])
-        out.append(torch.where(v, seg.seg_id, torch.full_like(seg.seg_id, -1)))
-    return torch.stack(out)
+                      valid.contiguous()).long()
+    n = roots.shape[1]
+    is_root = valid & (roots == torch.arange(n, device=roots.device))
+    rank = torch.cumsum(is_root, dim=1) - is_root.long()
+    labels = torch.gather(rank, 1, roots.clamp(min=0))
+    return torch.where(valid, labels, -1).to(torch.int32)

@@ -5,6 +5,7 @@ package's test fixtures (``make_scene``, ``make_lidar_scene``,
 ``make_camera_data``, ``with_noaug_channels``) and its ``pack_mask_scores``.
 The ``*_arrays`` functions return plain NumPy dicts; ``to_point_batch`` /
 ``to_camera_data`` move them into the port's containers on a device.
+``ccl_problem_arrays`` builds the CCL kernel's hard inputs.
 """
 from __future__ import annotations
 
@@ -247,6 +248,56 @@ def make_camera_arrays(
             anno[b, row] = [u0, v0, u1, v1, 0.9, cls, ci, row, 1]
             row += 1
     return dict(masks=pack_mask_scores(masks, anno), anno=anno, lidar2img=lidar2img)
+
+
+CCL_CASES = ("random", "reversed_chain", "grid", "coincident", "mixed_batch", "all_invalid")
+
+
+def ccl_problem_arrays(case: str, g: int, n: int, seed: int = 0):
+    """(xy [g, n, 2] f32, batch [g, n] i32, valid [g, n] bool): G connected-
+    component problems in the pre-scaled units of ``ops.ccl`` (adjacent iff
+    dist < 1), built to stress a CCL kernel:
+
+    - ``random``: uniform points at mean degree ~3 (near percolation, so long
+      components), batch ids 0/1, 15 % invalid, problem 1 (if any) all
+      invalid;
+    - ``reversed_chain``: one chain 0.9 apart with node 0 at one end and the
+      others numbered down from the far end (n-1, n-2, ..., 1), so the
+      component minimum sits a whole chain away from most of its indices;
+    - ``grid``: one component of all n nodes, a square grid 0.9 apart with
+      shuffled indices;
+    - ``coincident``: 8 stacks of identical points (d² = 0, complete graphs);
+    - ``mixed_batch``: the stacks with batch ids 0/1/2 in one problem, which
+      split each stack into three components;
+    - ``all_invalid``: ``random`` with every node invalid.
+    """
+    rng = np.random.default_rng(seed)
+    xy = np.zeros((g, n, 2), np.float32)
+    batch = np.zeros((g, n), np.int32)
+    valid = np.ones((g, n), bool)
+    if case in ("random", "all_invalid"):
+        side = np.sqrt(n * np.pi / 3.0)
+        xy[:] = rng.uniform(0, side, (g, n, 2))
+        batch[:] = rng.integers(0, 2, (g, n))
+        valid[:] = rng.random((g, n)) > 0.15
+        if g > 1:
+            valid[1] = False
+        if case == "all_invalid":
+            valid[:] = False
+    elif case == "reversed_chain":
+        xy[:, 1:, 0] = 0.9 * (n - np.arange(1, n))
+    elif case == "grid":
+        w = int(np.ceil(np.sqrt(n)))
+        pos = np.stack([np.arange(n) % w, np.arange(n) // w], -1) * 0.9
+        for gi in range(g):
+            xy[gi] = pos[rng.permutation(n)]
+    elif case in ("coincident", "mixed_batch"):
+        xy[:] = (rng.integers(0, 8, (g, n)) * 10.0)[..., None]
+        if case == "mixed_batch":
+            batch[:] = rng.integers(0, 3, (g, n))
+    else:
+        raise ValueError(f"unknown CCL case {case!r}; one of {CCL_CASES}")
+    return xy, batch, valid
 
 
 def to_point_batch(arrays: Dict[str, np.ndarray], device="cuda") -> PointBatch:

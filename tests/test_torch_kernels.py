@@ -18,6 +18,7 @@ import pytest
 import torch
 
 from fullysparsefusion_tpu_torch.ops import ccl, geometry, nms, sparse_conv
+from fullysparsefusion_tpu_torch.synthetic import ccl_problem_arrays
 
 
 @pytest.fixture
@@ -113,6 +114,26 @@ def test_ccl_kernel_matches_plain(cuda):
     xy, batch, valid = _ccl_problems(0, g=6, n=1024)
     args = [t(a).to(cuda) for a in (xy, batch, valid)]
     assert torch.equal(ccl.ccl_roots(*args).cpu(), ccl.ccl_roots_plain(*args).cpu())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case,g,n", [("reversed_chain", 6, 1024), ("grid", 6, 1024),
+                                      ("random", 6, 1000), ("random", 1, 8192),
+                                      ("coincident", 6, 1024), ("mixed_batch", 6, 1024),
+                                      ("all_invalid", 6, 1024)])
+def test_ccl_kernel_adversarial_problems(cuda, case, g, n):
+    """Bitwise equal to the plain version on inputs that are hard for a
+    sweep-based CCL (the reversed chain, one component of all N nodes), at
+    N off the 32-bit word and at the wrapper's largest N, on complete graphs
+    (coincident points), batch ids that split them, and all-invalid nodes."""
+    args = [t(a).to(cuda) for a in ccl_problem_arrays(case, g, n)]
+    got = ccl.ccl_roots(*args)
+    assert torch.equal(got, ccl.ccl_roots(*args))
+    assert torch.equal(got.cpu(), ccl.ccl_roots_plain(*args).cpu())
+    if case in ("reversed_chain", "grid"):
+        assert not got.any()
+    if case == "all_invalid":
+        assert (got == -1).all()
 
 
 # --- K3: NMS -----------------------------------------------------------------

@@ -12,6 +12,7 @@ import torch
 from fullysparsefusion_tpu.ops import geometry as jgeo
 from fullysparsefusion_tpu.ops import segment as jseg
 from fullysparsefusion_tpu.ops.ccl import connected_components_bev
+from fullysparsefusion_tpu.ops.ccl import connected_components_bev_batched as j_ccl_batched
 from fullysparsefusion_tpu.ops.nms import multiclass_nms_bev_batched as j_multiclass_nms
 from fullysparsefusion_tpu.ops.nms import nms_mask_from_iou as j_nms_mask
 from fullysparsefusion_tpu.ops.pallas_kernels import nms_scan_pallas
@@ -21,6 +22,7 @@ from fullysparsefusion_tpu.ops.voxelize import voxelize_points as j_voxelize
 from fullysparsefusion_tpu.utils.gather import masked_gather as j_masked_gather
 from fullysparsefusion_tpu_torch.ops import ccl, geometry, nms, projection, segment
 from fullysparsefusion_tpu_torch.ops.voxelize import voxelize_points
+from fullysparsefusion_tpu_torch.synthetic import CCL_CASES, ccl_problem_arrays
 from fullysparsefusion_tpu_torch.utils.gather import masked_gather
 from test_torch_kernels import _boxes, _ccl_problems, t
 
@@ -118,9 +120,14 @@ def _union_find_roots(xy, batch, valid):
                      if valid[i] else -1 for i in range(n)])
 
 
-@pytest.mark.parametrize("seed", [0, 1])
-def test_ccl_roots_plain_matches_union_find_and_jax(seed):
-    xy, batch, valid = _ccl_problems(seed)
+@pytest.mark.parametrize("seed,g,n", [pytest.param(0, 3, 96, id="0"),
+                                      pytest.param(1, 3, 96, id="1"),
+                                      pytest.param(2, 6, 100, id="g6-n100")])
+def test_ccl_roots_plain_matches_union_find_and_jax(seed, g, n):
+    """Mixed batch ids and an all-invalid problem (2) in every case; the
+    compact labels come from the batched relabel of all problems at once."""
+    xy, batch, valid = _ccl_problems(seed, g, n)
+    assert not valid[2].any() and len(np.unique(batch[valid])) == 2
     roots = ccl.ccl_roots(t(xy), t(batch), t(valid))
     assert roots.dtype == torch.int32
     for gi in range(xy.shape[0]):
@@ -131,6 +138,39 @@ def test_ccl_roots_plain_matches_union_find_and_jax(seed):
                                        jnp.asarray(valid[gi]), 1.0)
         eq(labels[gi], ref)
     assert len(set(roots[0, :10].tolist())) == 10 and len(set(roots[0, 10:20].tolist())) == 1
+
+
+@pytest.mark.parametrize("case", CCL_CASES)
+def test_ccl_problem_cases_match_union_find(case):
+    """The K2 stress inputs (small here, full size on the card) and what
+    each is built to hold: one component, complete stacks split by batch."""
+    xy, batch, valid = ccl_problem_arrays(case, 2, 70, seed=3)
+    roots = ccl.ccl_roots(t(xy), t(batch), t(valid))
+    for gi in range(2):
+        eq(roots[gi], _union_find_roots(xy[gi], batch[gi], valid[gi]))
+    comps = [len(np.unique(r[r >= 0])) for r in roots.numpy()]
+    expect = {"reversed_chain": [1, 1], "grid": [1, 1], "all_invalid": [0, 0]}
+    if case in expect:
+        assert comps == expect[case]
+    elif case == "mixed_batch":
+        assert comps[0] > len(np.unique(xy[0, :, 0]))
+    elif case == "random":
+        assert comps[1] == 0 and comps[0] > 1
+
+
+def test_reversed_chain_is_one_component_where_jax_caps_its_sweeps():
+    """One chain 0.9 apart, node 0 at one end and the others numbered down
+    from the far end: the component minimum moves one hop per sweep. The
+    port is exact; the JAX package's CPU path stops after 32 iterations
+    (its TPU path after 12 fixed sweeps) and splits the chain."""
+    xy, batch, valid = ccl_problem_arrays("reversed_chain", 1, 64)
+    ref = _union_find_roots(xy[0], batch[0], valid[0])
+    assert (ref == 0).all()
+    eq(ccl.ccl_roots(t(xy), t(batch), t(valid))[0], ref)
+    assert ccl.ccl_roots_plain.sweeps > 33
+    eq(ccl.connected_components_bev_batched(t(xy), t(batch), t(valid)), np.zeros((1, 64)))
+    jax_labels = j_ccl_batched(jnp.asarray(xy), jnp.asarray(batch), jnp.asarray(valid))
+    assert len(np.unique(np.asarray(jax_labels))) > 1
 
 
 # --- K3: NMS ---------------------------------------------------------------
