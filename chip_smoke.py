@@ -22,7 +22,20 @@ Phases, each of which ends the script with a non-zero exit on failure:
    every slot a miss, exactly one hit per row, ``n_out`` off the tile, Cin 16
    / Cout 48), K2 the problems of ``synthetic.ccl_problem_arrays`` (the
    reversed chain, one component of all N nodes, N = 1,000 and 8,192,
-   coincident points, mixed batch ids, all invalid), each timed.
+   coincident points, mixed batch ids, all invalid), each timed;
+5. train: full-width FSF training at batch 1 on the seed-0 bench scene with
+   its own GT, through ``parallel.train.train_step`` (AdamW, lr 1e-4 over
+   100 steps, the segmentor core at 0.2): two warm-up steps, then five
+   timed steps (forward + losses, backward, optimizer by CUDA events; peak
+   memory; every loss; the kernels' launches per step), with the counters
+   zeroed just before the five and read just after. The summed loss must be
+   finite and fall, and every major submodule must get a gradient. One more
+   step's backward calls of K1 (input gradients) and of ``dw_per_tap``
+   (weight gradients) are captured and held to their plain versions on the
+   card, each timed by CUDA-graph replay. Before all of it a tiny-config
+   forward + backward runs on the GPU and on the CPU from the same weights:
+   with eval-form BN the losses and the gradient tree must agree, with
+   train-form BN the losses (``small_train_reference_check`` says why).
 
 The last lines are a ``{"kernels": [...]}`` JSON object, the card's name and
 power limit from ``nvidia-smi``, and ``{"ok": true, "device": {...}}``.
@@ -32,8 +45,10 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import dataclasses
 import functools
 import json
+import math
 import subprocess
 import sys
 import time
@@ -58,6 +73,19 @@ REQUEST_SEEDS = (0, 1, 2, 0)
 # K1 tolerance: bf16 products are exact in f32, so kernel and plain version
 # differ only in the order of the f32 sums (27 taps x Cin terms)
 K1_RTOL = 1e-4
+# dw_per_tap tolerance, per tap relative to ||d_w[k]||: the same bf16
+# products summed over up to n_out rows in f32, in another order
+DW_RTOL = 1e-4
+# tiny-config train step, GPU against CPU (tests/test_torch_train.py):
+# losses of the bf16 chain, gradients per leaf (relative L2) and in total
+TRAIN_LOSS_TOL = 4e-3
+TRAIN_LEAF_TOL = 5e-2
+TRAIN_TOTAL_TOL = 1e-2
+TRAIN_LR_RULES = {"seg_core": 0.2}
+# the submodules that must get a gradient (tests/test_train.py's list, and the segmentor core)
+MUST_TRAIN = ("frustum_head", "fsd_branch", "combine_frustum_mlp", "combine_fsd_mlp",
+              "refine_sir_0", "refined_head_0", "out_proj_0", "position_encoder_0",
+              "lidar_img_mlp_0", "refine_img_mlp_0", "frustum", "seg_enhance_mlp", "seg_core")
 # bf16 UNet chain on two devices (cuDNN vs CPU conv3d, kernel vs plain sums):
 # a bf16 rounding step can land one ulp apart, 2^-8 relative
 BF16_CHAIN_TOL = 4e-3
@@ -151,8 +179,9 @@ def small_reference_check(device="cuda"):
     outs = {}
     for dev, model in (("cpu", ref_model), (device, gpu_model)):
         pb, cd = S.fsf_inputs(sc, cam, device=dev)
-        res = model(pb, cd, 2)
-        det = model.get_bboxes(res, 2)
+        with torch.inference_mode():
+            res = model(pb, cd, 2)
+            det = model.get_bboxes(res, 2)
         outs[dev] = (res, det)
     (r_cpu, d_cpu), (r_gpu, d_gpu) = outs["cpu"], outs[device]
 
@@ -193,8 +222,8 @@ def bench_config():
     return FSFConfig(fsd=FSDConfig(caps=Capacities(**BENCH_CAPS), segmentor=seg))
 
 
-def bench_request(seed: int, cfg, device="cuda"):
-    """One bench-scale request on ``device``: the JAX package bench's scene."""
+def bench_scene(seed: int, cfg):
+    """The JAX package bench's scene and cameras (NumPy arrays), batch 1."""
     from fullysparsefusion_tpu_torch import synthetic as S
 
     sc = S.make_lidar_scene_arrays(seed=seed, n_cap=cfg.caps.points, max_gt=cfg.caps.max_gt,
@@ -202,7 +231,14 @@ def bench_request(seed: int, cfg, device="cuda"):
     cam = S.make_camera_arrays(sc["gt_boxes"], sc["gt_labels"], sc["gt_valid"], batch_size=1,
                                num_cams=cfg.num_cams, num_classes=cfg.num_classes,
                                img_h=450, img_w=800, max_anno=250, fx=400.0)
-    return S.fsf_inputs(sc, cam, device=device)
+    return sc, cam
+
+
+def bench_request(seed: int, cfg, device="cuda"):
+    """One bench-scale request on ``device``: the JAX package bench's scene."""
+    from fullysparsefusion_tpu_torch import synthetic as S
+
+    return S.fsf_inputs(*bench_scene(seed, cfg), device=device)
 
 
 def serve(model, requests):
@@ -215,8 +251,9 @@ def serve(model, requests):
         end = torch.cuda.Event(enable_timing=True)
         t0 = time.perf_counter()
         start.record()
-        res = model(pb, cam, 1)
-        det = model.get_bboxes(res, 1)
+        with torch.inference_mode():
+            res = model(pb, cam, 1)
+            det = model.get_bboxes(res, 1)
         end.record()
         det = type(det)(*[t.cpu() for t in det])  # the answer reaches the host
         host_ms = (time.perf_counter() - t0) * 1e3
@@ -346,7 +383,7 @@ def check_kernels(model, request):
     calls = {"gather_conv": [], "ccl_roots": [], "nms_keep": []}
     with capture_calls(sparse_conv, "gather_conv", calls["gather_conv"]), \
             capture_calls(ccl, "ccl_roots", calls["ccl_roots"]), \
-            capture_calls(nms, "nms_keep", calls["nms_keep"]):
+            capture_calls(nms, "nms_keep", calls["nms_keep"]), torch.inference_mode():
         model.get_bboxes(model(*request, 1), 1)
     torch.cuda.synchronize()
     results = {}
@@ -425,6 +462,282 @@ def check_kernels(model, request):
     return results
 
 
+def gather_only(cfg):
+    """``cfg`` with every UNet conv on the gather path (K1 and dw_per_tap)."""
+    seg = dataclasses.replace(cfg.fsd.segmentor, unet_dense_min_occupancy=2.0)
+    return dataclasses.replace(cfg, fsd=dataclasses.replace(cfg.fsd, segmentor=seg))
+
+
+def small_train_reference_check(device="cuda"):
+    """Tiny FSF forward + losses + backward: GPU (kernels) against CPU (plain
+    versions), same weights and scene, every UNet conv on the gather path as
+    the CPU parity test runs it against the JAX package.
+
+    Both BN forms run, and each is held on its losses (the integer
+    diagnostics exactly). With eval-form BN both devices take the same
+    discrete decisions and the whole gradient tree is held to the CPU
+    tests' total tolerance. Single leaves are reported, not held: the
+    deepest UNet stage's weight gradients are near-cancelling sums, which a
+    perturbation of K1's output at f32 rounding level moves by percents
+    (``tools/grad_noise_floor.py`` measures it on the CPU), and K1 sums in
+    another order than its plain version. With train-form BN a bf16 rounding
+    step one ulp apart moves a decoded box far enough to flip a point's RoI
+    membership, which changes the refinement stage's gradients outright."""
+    from fullysparsefusion_tpu_torch import synthetic as S
+    from fullysparsefusion_tpu_torch.config import tiny_fsf_config
+    from fullysparsefusion_tpu_torch.parallel.train import total_loss
+    from fullysparsefusion_tpu_torch.weights import build_fsf
+
+    cfg = gather_only(tiny_fsf_config())
+    sc = S.make_scene_arrays(seed=0, n_cap=cfg.caps.points, max_gt=cfg.caps.max_gt)
+    cam = S.make_camera_arrays(sc["gt_boxes"], sc["gt_labels"], sc["gt_valid"],
+                               num_classes=cfg.num_classes)
+    ref_model = build_fsf(cfg, seed=0, device="cpu")
+    report = {}
+    for form, train in (("eval_bn", False), ("train_bn", True)):
+        res = {}
+        for dev in ("cpu", device):
+            model = copy.deepcopy(ref_model).to(dev)
+            pb, cd = S.fsf_inputs(sc, cam, device=dev)
+            gt = S.to_ground_truth(sc, device=dev)
+            losses = model(pb, cd, 2, gt, gt, train=train)["losses"]
+            total_loss(losses).backward()
+            res[dev] = ({k: float(v.detach()) for k, v in losses.items()},
+                        {n: p.grad.detach().float().cpu() for n, p in model.named_parameters()})
+        (l_cpu, g_cpu), (l_gpu, g_gpu) = res["cpu"], res[device]
+        if set(l_cpu) != set(l_gpu):
+            fail(f"small train reference ({form}): loss keys differ")
+        worst_loss = 0.0
+        for k, a in l_cpu.items():
+            b = l_gpu[k]
+            if not (math.isfinite(a) and math.isfinite(b)):
+                fail(f"small train reference ({form}): non-finite {k}")
+            exact = "num_pos" in k or "recall" in k
+            err = abs(a - b) / max(1.0, abs(a))
+            if (exact and a != b) or err > TRAIN_LOSS_TOL:
+                fail(f"small train reference ({form}): {k} {a} on the CPU, {b} on the GPU")
+            worst_loss = max(worst_loss, err)
+        num = den = 0.0
+        leaves = []
+        for n, a in g_cpu.items():
+            d, m = float((g_gpu[n] - a).norm()), float(a.norm())
+            leaves.append((d / max(m, 1e-12), n))
+            num, den = num + d * d, den + m * m
+        total = (num / den) ** 0.5
+        if not train and total > TRAIN_TOTAL_TOL:
+            fail(f"small train reference ({form}): gradient tree differs by {total:.3g}")
+        leaves.sort(reverse=True)
+        report[form] = {"loss_rel_err": float(f"{worst_loss:.3g}"),
+                        "grad_total_rel_err": float(f"{total:.3g}"),
+                        "gradients_held": not train,
+                        "leaves_over_leaf_tol": sum(e > TRAIN_LEAF_TOL for e, _ in leaves),
+                        "leaves": len(leaves),
+                        "worst_leaves": [[n, float(f"{e:.3g}")] for e, n in leaves[:4]]}
+    log({"phase": "small_train_reference", "losses": len(l_cpu), **report,
+         "tolerance": {"loss": TRAIN_LOSS_TOL, "total": TRAIN_TOTAL_TOL,
+                       "leaf_reported": TRAIN_LEAF_TOL}})
+
+
+def train_setup(cfg, device="cuda"):
+    """The full-width model, its optimizer and the seed-0 bench batch with
+    its own GT as both the augmented and the no-aug GT."""
+    from fullysparsefusion_tpu_torch import synthetic as S
+    from fullysparsefusion_tpu_torch.parallel.train import Batch, make_optimizer
+    from fullysparsefusion_tpu_torch.weights import build_fsf
+
+    sc, cam = bench_scene(0, cfg)
+    pb, cd = S.fsf_inputs(sc, cam, device=device)
+    gt = S.to_ground_truth(sc, device=device)
+    model = build_fsf(cfg, seed=0, device=device)
+    opt = make_optimizer(model, base_lr=1e-4, total_steps=100, lr_mult_rules=TRAIN_LR_RULES)
+    return model, opt, Batch(pb, cd, gt, gt)
+
+
+TRAIN_WARMUP, TRAIN_STEPS = 2, 5
+
+
+def train(model, opt, batch, wrappers):
+    """Two warm-up steps, then five timed ones with the launch counters
+    zeroed just before and read just after. Returns the launches."""
+    from fullysparsefusion_tpu_torch.ops import sparse_conv
+    from fullysparsefusion_tpu_torch.parallel.train import train_step
+    from fullysparsefusion_tpu_torch.train.hooks import RuntimeSchedule
+
+    sched = RuntimeSchedule()
+    for step in range(TRAIN_WARMUP):
+        train_step(model, opt, sched, batch, step)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in wrappers.values():
+        fn.launches = 0
+    plans0 = sparse_conv.plan_rulebook.calls
+    totals, split = [], {"forward_ms": [], "backward_ms": [], "optimizer_ms": []}
+    k1 = {"forward": [], "backward": []}
+    for step in range(TRAIN_WARMUP, TRAIN_WARMUP + TRAIN_STEPS):
+        events = {ph: torch.cuda.Event(enable_timing=True)
+                  for ph in ("start", "forward", "backward", "optimizer")}
+        k1_at = {}
+
+        def mark(phase):
+            events[phase].record()
+            k1_at[phase] = sparse_conv.gather_conv.launches
+
+        t0 = time.perf_counter()
+        mark("start")
+        loss, losses, gnorm = train_step(model, opt, sched, batch, step, mark)
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        losses = {k: float(v) for k, v in losses.items()}
+        for k, v in losses.items():
+            if not math.isfinite(v):
+                fail(f"train step {step}: non-finite {k}")
+        totals.append(float(loss))
+        phases = {}
+        for a, b in (("start", "forward"), ("forward", "backward"), ("backward", "optimizer")):
+            phases[f"{b}_ms"] = events[a].elapsed_time(events[b])
+            split[f"{b}_ms"].append(phases[f"{b}_ms"])
+        k1["forward"].append(k1_at["forward"] - k1_at["start"])
+        k1["backward"].append(k1_at["backward"] - k1_at["forward"])
+        log({"phase": "train_step", "step": step, "loss": totals[-1], "grad_norm": float(gnorm),
+             "gpu_ms": round(events["start"].elapsed_time(events["optimizer"]), 3),
+             "host_ms": round(host_ms, 3), **{k: round(v, 3) for k, v in phases.items()},
+             "losses": losses})
+    launches = {name: fn.launches for name, fn in wrappers.items()}
+    if not totals[-1] < totals[0]:
+        fail(f"the summed loss did not fall over the timed steps: {totals}")
+    for name in MUST_TRAIN:
+        norm = sum(float(p.grad.float().norm()) ** 2
+                   for p in getattr(model, name).parameters() if p.grad is not None)
+        if not norm > 0.0:
+            fail(f"zero gradient reaching {name}")
+    for name in ("gather_conv", "dw_per_tap", "ccl_roots"):
+        if launches[name] <= 0:
+            fail(f"kernel {name} was not launched on the train path")
+    per_step = {name: n / TRAIN_STEPS for name, n in launches.items()}
+    log({"phase": "train", "steps": TRAIN_STEPS, "loss_first": totals[0], "loss_last": totals[-1],
+         "mean_ms": {k: round(sum(v) / len(v), 3) for k, v in split.items()},
+         "peak_mem_mib": round(torch.cuda.max_memory_allocated() / 2**20, 1),
+         "launches_per_step": per_step,
+         "gather_conv_per_step": {k: sum(v) / len(v) for k, v in k1.items()},
+         "plan_rulebook_per_step": (sparse_conv.plan_rulebook.calls - plans0) / TRAIN_STEPS,
+         "parameters": sum(p.numel() for p in model.parameters())})
+    return launches, {k: sum(v) / len(v) for k, v in k1.items()}
+
+
+def check_dw_per_tap(feats, rows, g, plan=None) -> float:
+    """dw_per_tap against its plain version; fails beyond ``DW_RTOL`` of each
+    tap's ``||d_w[k]||`` or if two runs differ. Returns the largest absolute
+    error."""
+    from fullysparsefusion_tpu_torch.ops import sparse_conv
+
+    got = sparse_conv.dw_per_tap(feats, rows, g, plan)
+    again = sparse_conv.dw_per_tap(feats, rows, g, plan)
+    ref = sparse_conv.dw_per_tap_plain(feats, rows, g)
+    diff = (got - ref).flatten(1).norm(dim=1)
+    if not bool((diff <= DW_RTOL * ref.flatten(1).norm(dim=1)).all()):
+        fail(f"dw_per_tap {tuple(feats.shape)} x {tuple(g.shape)}: per-tap relative error "
+             f"{float((diff / ref.flatten(1).norm(dim=1).clamp(min=1e-30)).max()):.3g}")
+    if not torch.equal(got, again):
+        fail(f"dw_per_tap {tuple(feats.shape)} x {tuple(g.shape)} differs between two runs")
+    return float((got - ref).abs().max())
+
+
+def check_train_kernels(model, opt, batch, step: int):
+    """One more train step with K1's and dw_per_tap's calls captured; each
+    backward call is held to its plain version on the card and timed."""
+    from fullysparsefusion_tpu_torch.ops import sparse_conv
+    from fullysparsefusion_tpu_torch.parallel.train import train_step
+    from fullysparsefusion_tpu_torch.train.hooks import RuntimeSchedule
+
+    k1_calls, dw_calls, n_fwd = [], [], {}
+    with capture_calls(sparse_conv, "gather_conv", k1_calls), \
+            capture_calls(sparse_conv, "dw_per_tap", dw_calls):
+        train_step(model, opt, RuntimeSchedule(), batch, step,
+                   lambda phase: n_fwd.setdefault(phase, len(k1_calls)))
+    torch.cuda.synchronize()
+    results = {}
+    rows_out, tot = [], dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, err=0.0)
+    for feats, rows, w, plan in k1_calls[n_fwd["forward"]:]:
+        err = check_gather_conv(feats, rows, w, plan)
+        n_src, cin = feats.shape
+        k3, n_out = rows.shape
+        cout = w.shape[2]
+        hits = int((rows < n_src).sum())
+        flop = 2.0 * hits * cin * cout
+        byte = 2.0 * n_src * cin + 4.0 * k3 * n_out + 2.0 * k3 * cin * cout + 4.0 * n_out * cout
+        ms = time_ms(lambda: sparse_conv.gather_conv(feats, rows, w, plan), 20)
+        plain_ms = eager_ms(lambda: sparse_conv.gather_conv_plain(feats, rows, w), 3)
+        bound = max(flop / PEAK_BF16_FLOPS, byte / PEAK_BYTES) * 1e3
+        rows_out.append({"n_src": n_src, "n_out": n_out, "cin": cin, "cout": cout, "hits": hits,
+                         "taps_per_tile": round(float(tile_taps(plan, k3).float().mean()), 3),
+                         "ms": round(ms, 4), "plain_ms": round(plain_ms, 4),
+                         "bound_ms": round(bound, 5), "max_abs_err": err})
+        for k, v in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", bound)):
+            tot[k] += v
+        tot["err"] = max(tot["err"], err)
+    if not rows_out or not any(r["cout"] > 256 for r in rows_out):
+        fail("the backward ran no K1 call with more than 256 output channels")
+    log({"phase": "train_kernel_calls", "kernel": "gather_conv", "role": "d_feats",
+         "calls": rows_out, "ms": round(tot["ms"], 4), "bound_ms": round(tot["bound_ms"], 5)})
+    results["gather_conv_bwd"] = tot
+
+    rows_out, tot = [], dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, err=0.0, flop=0.0, byte=0.0)
+    for feats, rows, g, plan in dw_calls:
+        err = check_dw_per_tap(feats, rows, g, plan)
+        n_src, cin = feats.shape
+        k3, n_out = rows.shape
+        cout = g.shape[1]
+        hits = int((rows < n_src).sum())
+        flop = 2.0 * hits * cin * cout
+        byte = (2.0 * n_src * cin + 4.0 * k3 * n_out + 2.0 * n_out * cout + 8.0 * n_out
+                + 4.0 * k3 * cin * cout)
+        ms = time_ms(lambda: sparse_conv.dw_per_tap(feats, rows, g, plan), 20)
+        plain_ms = eager_ms(lambda: sparse_conv.dw_per_tap_plain(feats, rows, g), 3)
+        bound = max(flop / PEAK_BF16_FLOPS, byte / PEAK_BYTES) * 1e3
+        rows_out.append({"n_src": n_src, "n_out": n_out, "cin": cin, "cout": cout, "hits": hits,
+                         "splits": sparse_conv.dw_splits(n_out, k3, cin, cout),
+                         "ms": round(ms, 4), "plain_ms": round(plain_ms, 4),
+                         "bound_ms": round(bound, 5), "max_abs_err": err})
+        for k, v in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", bound), ("flop", flop),
+                     ("byte", byte)):
+            tot[k] += v
+        tot["err"] = max(tot["err"], err)
+    log({"phase": "train_kernel_calls", "kernel": "dw_per_tap", "tolerance": DW_RTOL,
+         "calls": rows_out, "ms": round(tot["ms"], 4), "bound_ms": round(tot["bound_ms"], 5)})
+    results["dw_per_tap"] = dict(
+        max_abs_err=tot["err"], ms=tot["ms"], plain_ms=tot["plain_ms"], bound_ms=tot["bound_ms"],
+        bound_by="operations" if tot["flop"] / PEAK_BF16_FLOPS > tot["byte"] / PEAK_BYTES
+        else "bytes")
+    return results
+
+
+def adversarial_dw_per_tap(shapes=((16, 16), (64, 48), (128, 256), (512, 512))):
+    """dw_per_tap on rulebooks made on the card to hit its edges: every slot a
+    miss, exactly one hit per row, a run of padding tiles, ``n_out`` off the
+    tile and Cin / Cout from 16 to 512."""
+    from fullysparsefusion_tpu_torch.ops import sparse_conv
+
+    g = torch.Generator(device="cuda").manual_seed(1)
+    n_src, n_out = 3000, 9000 - 77
+    errs = {}
+    for cin, cout in shapes:
+        feats = torch.randn(n_src, cin, generator=g, device="cuda").to(torch.bfloat16)
+        gr = torch.randn(n_out, cout, generator=g, device="cuda").to(torch.bfloat16)
+        rows = torch.randint(0, 2 * n_src, (27, n_out), generator=g, device="cuda",
+                             dtype=torch.int32)
+        rows = torch.where(rows < n_src, rows, torch.full_like(rows, n_src))
+        one = torch.full_like(rows, n_src)
+        tap = torch.randint(0, 27, (n_out,), generator=g, device="cuda")
+        one[tap, torch.arange(n_out, device="cuda")] = rows[0]
+        pad = rows.clone()
+        pad[:, 1000:3000] = n_src
+        for name, r in (("random", rows), ("every_slot_misses", torch.full_like(rows, n_src)),
+                        ("one_hit_per_row", one), ("padding_tiles", pad)):
+            errs[f"{name}_{cin}x{cout}"] = check_dw_per_tap(feats, r.contiguous(), gr)
+    log({"phase": "kernel_adversarial", "kernel": "dw_per_tap", "tolerance": DW_RTOL,
+         "max_abs_err": errs})
+
+
 KERNEL_INFO = {
     "gather_conv": ("fullysparsefusion_tpu_torch/csrc/gather_conv.cu",
                     "fullysparsefusion_tpu/ops/pallas_kernels.py:366"),
@@ -432,6 +745,9 @@ KERNEL_INFO = {
                   "fullysparsefusion_tpu/ops/pallas_kernels.py:70"),
     "nms_keep": ("fullysparsefusion_tpu_torch/csrc/nms.cu",
                  "fullysparsefusion_tpu/ops/pallas_kernels.py:511"),
+    # no Pallas kernel: the JAX package's d_w is XLA's per-tap gather + matmul
+    "dw_per_tap": ("fullysparsefusion_tpu_torch/csrc/gather_conv_dw.cu",
+                   "fullysparsefusion_tpu/ops/sparse_conv.py:380"),
 }
 
 
@@ -449,6 +765,7 @@ def main() -> int:
 
     build_kernels()
     small_reference_check()
+    small_train_reference_check()
 
     cfg = bench_config()
     t0 = time.perf_counter()
@@ -459,14 +776,14 @@ def main() -> int:
          "parameters": sum(p.numel() for p in model.parameters())})
 
     wrappers = {"gather_conv": sparse_conv.gather_conv, "ccl_roots": ccl.ccl_roots,
-                "nms_keep": nms.nms_keep}
+                "nms_keep": nms.nms_keep, "dw_per_tap": sparse_conv.dw_per_tap}
     for fn in wrappers.values():
         fn.launches = 0
     dets = serve(model, requests)
     launches = {name: fn.launches for name, fn in wrappers.items()}
     log({"phase": "main_path_launches", "requests": len(requests), **launches})
     for name, n in launches.items():
-        if n <= 0:
+        if n <= 0 and name != "dw_per_tap":
             fail(f"kernel {name} was not launched on the main path")
     first, again = dets[0], dets[-1]
     for name, a, b in zip(first._fields, first, again):
@@ -474,13 +791,29 @@ def main() -> int:
             fail(f"re-run of request seed 0 changed {name}")
 
     stats = check_kernels(model, requests[0][1])
+    del model, requests, dets
+    torch.cuda.empty_cache()
+
+    model, opt, batch = train_setup(cfg)
+    train_launches, k1_per_step = train(model, opt, batch, wrappers)
+    train_stats = check_train_kernels(model, opt, batch, TRAIN_WARMUP + TRAIN_STEPS)
+    adversarial_dw_per_tap()
+    stats["dw_per_tap"] = train_stats["dw_per_tap"]
+    launches["dw_per_tap"] = train_launches["dw_per_tap"]
     entries = []
     for name, st in stats.items():
         source, replaces = KERNEL_INFO[name]
-        entries.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                        "launches": launches[name], "max_abs_err": st["max_abs_err"],
-                        "ms": st["ms"], "plain_ms": st["plain_ms"], "bound_ms": st["bound_ms"],
-                        "bound_by": st["bound_by"], "library_ms": None})
+        entry = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                 "launches": launches[name], "max_abs_err": st["max_abs_err"],
+                 "ms": st["ms"], "plain_ms": st["plain_ms"], "bound_ms": st["bound_ms"],
+                 "bound_by": st["bound_by"], "library_ms": None,
+                 "train_launches_per_step": train_launches[name] / TRAIN_STEPS}
+        if name == "gather_conv":
+            entry["train_launches_per_step_by_pass"] = k1_per_step
+            bwd = train_stats["gather_conv_bwd"]
+            entry["train_backward"] = {"ms": bwd["ms"], "plain_ms": bwd["plain_ms"],
+                                       "bound_ms": bwd["bound_ms"], "max_abs_err": bwd["err"]}
+        entries.append(entry)
     log({"phase": "total", "seconds": round(time.perf_counter() - t_start, 3)})
     log({"kernels": entries})
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

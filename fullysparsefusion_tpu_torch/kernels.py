@@ -29,6 +29,8 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 KERNELS = {
     "gather_conv": ("gather_conv.cu", [], "fsf_gather_conv",
                     [_P, _I, _I, _P, _I, _I, _P, _I, _P, _P, _P, _P]),
+    "gather_conv_dw": ("gather_conv_dw.cu", [], "fsf_gather_conv_dw",
+                       [_P, _I, _I, _P, _I, _I, _P, _I, _P, _P, _I, _P, _P, _P]),
     # no FMA contraction anywhere in the CCL distance test
     "ccl": ("ccl.cu", ["--fmad=false"], "fsf_ccl_roots",
             [_P, _P, _P, _I, _I, _P, _P, _P]),

@@ -104,8 +104,9 @@ def frustum_segments(sel: FrustumSelection, max_anno: int, capacity: int
 
 
 def weighted_cluster_centers(xyz, w, seg: SegmentInfo):
-    """Foreground-probability-weighted per-instance centers."""
-    w = w.clamp(min=1e-5)[:, None]
+    """Foreground-probability-weighted per-instance centers; the weights
+    carry no gradient."""
+    w = w.detach().clamp(min=1e-5)[:, None]
     sw = segment_sum(torch.cat([xyz * w, w], dim=1), seg.seg_id, seg.capacity)
     return sw[:, :3] / sw[:, 3:4].clamp(min=1e-6)
 

@@ -1,32 +1,35 @@
-"""FSF — the LiDAR + camera fusion detector, inference (port of
-``models/fsf.py``).
+"""FSF — the LiDAR + camera fusion detector (port of ``models/fsf.py``).
 
 ① segmentor core → image-feature enhancement (best-camera 2D class scores
 through a zero-init MLP added to the point features) → vote-seg head;
 ② camera queries from mask-grouped frustums; ③ LiDAR queries from the FSD
 clustering branch; ④ fusion of both query sets; ⑤ cascade refinement (RoI
 point pooling → RoI SIR → residual query update → refined head); then
-decode with rotated NMS (:meth:`FSF.get_bboxes`).
+decode with rotated NMS (:meth:`FSF.get_bboxes`). Given ground truth, the
+forward also returns the training losses (:meth:`FSF._losses`); its BN
+layers take their train form in ``model.train()`` mode.
 
 Points carry their pre-augmentation xyz in the last 3 channels; projection
 into the cameras uses those.
 """
 from __future__ import annotations
 
-from typing import Dict
+import contextlib
+from typing import Dict, Optional
 
 import torch
 from torch import nn
 
 from ..config import FSFConfig
+from ..core.assigners import hybrid_assign
 from ..core.coders import BasePointBBoxCoder
-from ..utils.containers import PointBatch
+from ..utils.containers import GroundTruth, PointBatch
 from .camera import CameraData, FrustumBranch, gather_point_instances, per_point_class_scores
 from .fsd import FSDQueryBranch
-from .heads import SparseClusterHead, cluster_head_get_bboxes
+from .heads import SparseClusterHead, cluster_head_get_bboxes, cluster_head_loss
 from .layers import MLP, LayerNorm, get_activation
 from .roi import FullySparseBboxHead, extract_roi_points_grid
-from .segmentor import SegmentorCore, VoteSegHead
+from .segmentor import SegmentorCore, VoteSegHead, segmentor_loss, segmentor_targets
 
 
 class ZeroInitMLP(nn.Module):
@@ -93,8 +96,37 @@ class FSF(nn.Module):
             setattr(self, f"refined_head_{i}", SparseClusterHead(c.refined_head, f.num_classes))
         self.coder = BasePointBBoxCoder(f.head.code_size)
 
-    @torch.no_grad()
-    def forward(self, pb: PointBatch, cam: CameraData, batch_size: int) -> Dict:
+    def forward(self, pb: PointBatch, cam: CameraData, batch_size: int,
+                gt: Optional[GroundTruth] = None, no_aug_gt: Optional[GroundTruth] = None,
+                train: Optional[bool] = None, thresh_buffer=0.0, detection_weight=1.0) -> Dict:
+        """The JAX package's ``FSF.__call__``. ``train`` picks the BN form for
+        this call (None: the module's mode); with ``gt`` the result holds
+        ``losses``, the detection terms scaled by ``detection_weight``;
+        ``thresh_buffer`` raises the foreground thresholds of the LiDAR
+        branch. Serving calls it under ``torch.inference_mode()``."""
+        with self._mode(train):
+            result = self._forward(pb, cam, batch_size, thresh_buffer)
+            if gt is not None:
+                pb_inner = PointBatch(points=pb.points[:, :-3], batch_idx=pb.batch_idx,
+                                      valid=pb.valid)
+                losses = self._losses(pb_inner, cam, gt, no_aug_gt, result)
+                for k in list(losses):
+                    if k.startswith(("frustum_loss", "fsd_loss", "stage")) and "loss" in k:
+                        losses[k] = losses[k] * detection_weight
+                result["losses"] = losses
+        return result
+
+    @contextlib.contextmanager
+    def _mode(self, train: Optional[bool]):
+        was = self.training
+        if train is not None:
+            self.train(train)
+        try:
+            yield
+        finally:
+            self.train(was)
+
+    def _forward(self, pb: PointBatch, cam: CameraData, batch_size: int, thresh_buffer):
         c = self.cfg
         f = c.fsd
         points = pb.points[:, :-3]
@@ -114,7 +146,7 @@ class FSF(nn.Module):
         fr_out = self.frustum_head(fr["obj_feat"], fr["obj_valid"])
 
         # ③ LiDAR queries
-        fsd = self.fsd_branch(pb_inner, seg_out, batch_size)
+        fsd = self.fsd_branch(pb_inner, seg_out, batch_size, thresh_buffer)
 
         # ④ fusion
         centers = torch.cat([fr["obj_centers"], fsd["cluster_xyz"]])
@@ -137,7 +169,7 @@ class FSF(nn.Module):
         # ⑤ cascade refinement
         pcr = f.segmentor.point_cloud_range
         for i in range(c.num_refine_stages):
-            boxes = self.coder.decode(reg_preds, centers)
+            boxes = self.coder.decode(reg_preds, centers).detach()
             new_centers = boxes[:, :3]
             rp = extract_roi_points_grid(
                 points[:, :3], pb.batch_idx, pt_valid, boxes[:, :7], q_batch, q_valid,
@@ -149,7 +181,7 @@ class FSF(nn.Module):
             roi_feats, _ = getattr(self, f"refine_sir_{i}")(
                 points[pidx], feats_in, rp.geometry, rp.roi_idx, rp.valid, centers.shape[0])
             cur = getattr(self, f"lidar_img_mlp_{i}")(roi_feats, q_valid)
-            pos = getattr(self, f"position_encoder_{i}")(new_centers, q_valid)
+            pos = getattr(self, f"position_encoder_{i}")(new_centers.detach(), q_valid)
             query = getattr(self, f"out_proj_{i}")(cur + res_query + pos, q_valid)
             head_out = getattr(self, f"refined_head_{i}")(query, q_valid)
             centers = new_centers
@@ -161,6 +193,41 @@ class FSF(nn.Module):
         result["final"] = dict(centers=centers, cls_logits=cls_logits, reg_preds=reg_preds,
                                q_batch=q_batch, q_valid=q_valid)
         return result
+
+    def _losses(self, pb_inner: PointBatch, cam: CameraData, gt: GroundTruth,
+                 no_aug_gt: Optional[GroundTruth], result) -> Dict[str, torch.Tensor]:
+        """Segmentor loss; the camera-query head's against the hybrid
+        assignment (3D point-in-box ∪ 2D max-IoU on the projected no-aug
+        GT); the LiDAR-query head's by cluster-center-in-box; each refinement
+        stage's against the hybrid assignment with the distance assigner."""
+        c = self.cfg
+        f = c.fsd
+        no_aug_gt = gt if no_aug_gt is None else no_aug_gt
+        seg_out, fr, fsd = result["seg_out"], result["frustum"], result["fsd"]
+        losses = segmentor_loss(seg_out, *segmentor_targets(pb_inner, gt, f.num_classes),
+                                f.segmentor)
+        fr_assign = hybrid_assign(fr["obj_centers"], fr["obj_batch"], fr["obj_valid"],
+                                  fr["preds_2d"], gt, no_aug_gt, cam.lidar2img, cam.img_w,
+                                  cam.img_h)
+        losses.update(cluster_head_loss(
+            fr["out"]["cls_logits"], fr["out"]["reg_preds"], fr["obj_centers"], fr["obj_batch"],
+            fr["obj_valid"], gt, c.frustum_head, assign=fr_assign, prefix="frustum_"))
+        losses.update(cluster_head_loss(
+            fsd["cls_logits"], fsd["reg_preds"], fsd["cluster_xyz"], fsd["cluster_batch"],
+            fsd["cluster_valid"], gt, f.head, prefix="fsd_"))
+        fin = result["final"]
+        preds_2d_all = torch.cat([fr["preds_2d"],
+                                  fr["preds_2d"].new_zeros(f.caps.clusters,
+                                                           fr["preds_2d"].shape[1])])
+        for i, st in enumerate(result["stages"]):
+            st_assign = hybrid_assign(st["centers"], fin["q_batch"], fin["q_valid"], preds_2d_all,
+                                      gt, no_aug_gt, cam.lidar2img, cam.img_w, cam.img_h,
+                                      query_logits=st["cls_logits"],
+                                      max_dist_per_class=c.refine_max_dist)
+            losses.update(cluster_head_loss(
+                st["cls_logits"], st["reg_preds"], st["centers"], fin["q_batch"], fin["q_valid"],
+                gt, c.refined_head, assign=st_assign, prefix=f"stage{i}_"))
+        return losses
 
     @torch.no_grad()
     def get_bboxes(self, result, batch_size: int):

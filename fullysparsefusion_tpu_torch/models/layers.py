@@ -1,4 +1,4 @@
-"""Shared NN building blocks (port of ``models/layers.py``, eval form).
+"""Shared NN building blocks (port of ``models/layers.py``).
 
 Child modules carry the JAX package's flax names (``Dense_0``, ``Norm_0``,
 ``LayerNorm_0``, ``MaskedBatchNorm_0``) so a flax variable tree maps onto
@@ -38,20 +38,39 @@ class LayerNorm(nn.Module):
 
 
 class MaskedBatchNorm(nn.Module):
-    """BatchNorm1d over a [N, C] tensor with running statistics (the
-    inference form of the JAX package's masked BN; eps 1e-3)."""
+    """BatchNorm1d over the valid rows of a [N, C] tensor (eps 1e-3).
 
-    def __init__(self, c: int, eps: float = 1e-3):
+    In train mode (``self.training``) it normalises by the valid rows'
+    statistics, in f32 even for bf16 input, with the biased variance
+    ``max(E[x²] − mean², 0)`` over ``n = max(Σvalid, 1)`` rows, and folds them
+    into the running statistics with the torch momentum convention
+    ``(1 − m)·running + m·batch`` (m = 0.01); in eval mode it uses the running
+    statistics. ``valid=None`` means every row."""
+
+    def __init__(self, c: int, eps: float = 1e-3, momentum: float = 0.01):
         super().__init__()
         self.eps = eps
+        self.momentum = momentum
         self.weight = nn.Parameter(torch.ones(c))
         self.bias = nn.Parameter(torch.zeros(c))
         self.register_buffer("running_mean", torch.zeros(c))
         self.register_buffer("running_var", torch.ones(c))
 
     def forward(self, x: torch.Tensor, valid=None) -> torch.Tensor:
-        return ((x.float() - self.running_mean) * torch.rsqrt(self.running_var + self.eps)
-                * self.weight + self.bias)
+        xf = x.float()
+        if not self.training:
+            mean, var = self.running_mean, self.running_var
+        else:
+            w = (torch.ones(x.shape[0], device=x.device) if valid is None
+                 else valid.float())[:, None]
+            n = w.sum().clamp(min=1.0)
+            mean = (xf * w).sum(0) / n
+            var = torch.clamp((xf * xf * w).sum(0) / n - mean ** 2, min=0.0)
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.mul_(1 - m).add_(m * mean)
+                self.running_var.mul_(1 - m).add_(m * var)
+        return (xf - mean) * torch.rsqrt(var + self.eps) * self.weight + self.bias
 
 
 class Norm(nn.Module):

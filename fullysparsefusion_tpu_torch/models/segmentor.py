@@ -1,19 +1,25 @@
-"""VoteSegmentor inference (port of ``models/segmentor.py``): voxelize →
-VFE → sparse UNet → voxel-to-point neck (``SegmentorCore``), then the
-per-point head emitting (C+1)-way logits and sqrt-encoded center votes
-(``VoteSegHead``)."""
+"""VoteSegmentor (port of ``models/segmentor.py``): voxelize → VFE → sparse
+UNet → voxel-to-point neck (``SegmentorCore``), then the per-point head
+emitting (C+1)-way logits and sqrt-encoded center votes (``VoteSegHead``);
+the per-point targets from GT boxes and the segmentation + vote loss."""
 from __future__ import annotations
 
 import torch
 from torch import nn
 
 from ..config import Capacities, VoteSegmentorConfig
+from ..core import losses as L
+from ..ops.geometry import gravity_center, points_box_assignment_batched
 from ..ops.sparse_conv import SparseTensor
 from ..ops.voxelize import grid_dims, voxelize_points
-from ..utils.containers import PointBatch
+from ..utils.containers import GroundTruth, PointBatch
 from .layers import MLP
 from .sparse_unet import SparseUNet
 from .vfe import DynamicScatterVFE
+
+
+def encode_vote_targets(delta: torch.Tensor) -> torch.Tensor:
+    return torch.sign(delta) * torch.sqrt(delta.abs())
 
 
 def decode_vote_targets(preds: torch.Tensor) -> torch.Tensor:
@@ -82,3 +88,48 @@ class VoteSegHead(nn.Module):
             offsets=decode_vote_targets(vote_preds),
             valid=valid,
         )
+
+
+def segmentor_targets(pb: PointBatch, gt: GroundTruth, num_classes: int):
+    """Per point: (label, the box's class or ``num_classes`` for background;
+    vote target, the sqrt-encoded offset to the containing box's gravity
+    center; vote mask, in a box) — the lowest-index box of the point's
+    sample that contains it."""
+    b, m, _ = gt.boxes.shape
+    flat_boxes = gt.boxes.reshape(b * m, -1)
+    flat_labels = gt.labels.reshape(b * m)
+    flat_valid = gt.valid.reshape(b * m) & (flat_labels >= 0)
+    box_batch = torch.arange(b, dtype=torch.int32, device=gt.boxes.device).repeat_interleave(m)
+    assign = points_box_assignment_batched(pb.xyz, pb.batch_idx, flat_boxes[:, :7], box_batch,
+                                           flat_valid)
+    in_box = assign >= 0
+    safe = assign.clamp(min=0).long()
+    bg = torch.full_like(flat_labels[safe], num_classes)
+    labels = torch.where(in_box & pb.valid, flat_labels[safe], bg).to(torch.int32)
+    centers = gravity_center(flat_boxes[:, :7])
+    delta = torch.where(in_box[:, None], centers[safe] - pb.xyz, torch.zeros_like(pb.xyz))
+    return labels, encode_vote_targets(delta), in_box & pb.valid
+
+
+def segmentor_loss(out, labels, vote_targets, vote_mask, cfg: VoteSegmentorConfig):
+    """``loss_sem_seg``: cross-entropy with the background weighted
+    ``bg_class_weight``, normalised by the valid points' summed class
+    weights, times ``seg_loss_weight``; ``loss_vote``: L1 of the labelled
+    class's vote against the sqrt target over in-box points (3 per point),
+    times ``vote_loss_weight``."""
+    n_cls = cfg.num_classes + 1
+    valid = out["valid"]
+    logits = out["seg_logits"]
+    class_weight = torch.ones(n_cls, dtype=logits.dtype, device=logits.device)
+    class_weight[-1] = cfg.bg_class_weight
+    vf = valid.to(logits.dtype)
+    ce = L.softmax_ce_loss(logits, labels, class_weight)
+    safe = labels.clamp(0, n_cls - 1).long()
+    w_per = class_weight[safe] * vf
+    loss_sem = cfg.seg_loss_weight * (ce * vf).sum() / w_per.sum().clamp(min=1.0)
+    votes = out["vote_preds"].reshape(-1, n_cls, 3)
+    picked = votes.gather(1, safe[:, None, None].expand(-1, 1, 3))[:, 0]
+    vm = (vote_mask & valid).to(picked.dtype)
+    loss_vote = cfg.vote_loss_weight * ((picked - vote_targets).abs() * vm[:, None]).sum() \
+        / (vm.sum() * 3).clamp(min=1.0)
+    return dict(loss_sem_seg=loss_sem, loss_vote=loss_vote)

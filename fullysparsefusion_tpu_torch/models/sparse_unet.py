@@ -18,7 +18,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.sparse_conv import (
-    ConvPlan, SparseTensor, build_subm_rulebook, plan_rulebook, sparse_conv3d,
+    ConvPlan, SparseTensor, build_subm_rulebook, mirror_rows, plan_rulebook, sparse_conv3d,
     sparse_conv3d_dense, sparse_inverse_conv3d, subm_conv_apply, subm_conv_dense,
     use_dense_conv,
 )
@@ -28,18 +28,26 @@ from .layers import MaskedBatchNorm
 class SubmRulebook:
     """A stage's submanifold rulebook rows; their K1 plan is made at the
     first gather conv that uses them and shared by the stage's other convs
-    (a dense stage never makes it)."""
+    (a dense stage never makes it). Likewise the mirrored rows and their
+    plan, which every backward conv of the stage gathers through, are made
+    at the first backward and shared."""
 
     def __init__(self, st: SparseTensor):
         self.rows = build_subm_rulebook(st)
         self.n_src = st.capacity
         self._plan: Optional[ConvPlan] = None
+        self._mirror: Optional[Tuple[torch.Tensor, ConvPlan]] = None
 
     @property
     def plan(self) -> ConvPlan:
         if self._plan is None:
             self._plan = plan_rulebook(self.rows, self.n_src)
         return self._plan
+
+    def mirror(self) -> Tuple[torch.Tensor, ConvPlan]:
+        if self._mirror is None:
+            self._mirror = mirror_rows(self.rows, self.n_src)
+        return self._mirror
 
 
 class _ConvBlock(nn.Module):
@@ -54,7 +62,7 @@ class _ConvBlock(nn.Module):
         self.cout = cout
 
     def _finish(self, out: SparseTensor) -> SparseTensor:
-        y = F.relu(self.MaskedBatchNorm_0(out.feats)) * out.valid[:, None].float()
+        y = F.relu(self.MaskedBatchNorm_0(out.feats, out.valid)) * out.valid[:, None].float()
         return out.replace(feats=y.to(torch.bfloat16))
 
 
@@ -69,7 +77,8 @@ class SubMBlock(_ConvBlock):
         if use_dense_conv(st, self.cout, self.dense_min_occupancy):
             y = subm_conv_dense(st, self.w, self.kernel_size)
         else:
-            y = subm_conv_apply(st.feats, st.valid, rulebook.rows, self.w, rulebook.plan)
+            y = subm_conv_apply(st.feats, st.valid, rulebook.rows, self.w, rulebook.plan,
+                                rulebook.mirror)
         return self._finish(st.replace(feats=y))
 
 

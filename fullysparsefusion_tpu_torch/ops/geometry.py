@@ -1,4 +1,5 @@
-"""Box geometry (port of the inference part of ``ops/geometry.py``).
+"""Box geometry (port of ``ops/geometry.py``: the rotated IoU of decode,
+the box membership, corners and 2D IoU of the assigners and losses).
 
 Boxes are ``[x, y, z_bottom, dx, dy, dz, yaw(, vx, vy)]`` with the origin at
 the bottom center. The rotated BEV IoU clips one quad by the other's four
@@ -130,3 +131,106 @@ def boxes_iou_bev(boxes1: torch.Tensor, boxes2: torch.Tensor) -> torch.Tensor:
     a2 = boxes2[:, 3] * boxes2[:, 4]
     union = a1[:, None] + a2[None, :] - inter
     return inter / union.clamp(min=1e-8)
+
+
+def points_box_assignment(points: torch.Tensor, boxes: torch.Tensor,
+                          boxes_valid: torch.Tensor) -> torch.Tensor:
+    """Per-point index of the lowest-index valid box containing it, -1 if none."""
+    inside = points_in_boxes(points, boxes) & boxes_valid[None, :]
+    return _first_hit(inside)
+
+
+def points_box_assignment_batched(points, point_batch, boxes, box_batch,
+                                  boxes_valid) -> torch.Tensor:
+    """:func:`points_box_assignment` restricted to the point's batch element."""
+    inside = (points_in_boxes(points, boxes) & boxes_valid[None, :]
+              & (point_batch[:, None] == box_batch[None, :]))
+    return _first_hit(inside)
+
+
+def _first_hit(inside: torch.Tensor) -> torch.Tensor:
+    """Lowest column set in each row of [N, M] bool, -1 for none."""
+    m = inside.shape[1]
+    idx = torch.arange(m + 1, dtype=torch.int32, device=inside.device)
+    # a column of "no hit" at m keeps the reduction defined for M = 0
+    hits = torch.cat([inside, inside.new_ones(inside.shape[0], 1)], dim=1)
+    first = torch.where(hits, idx, torch.full_like(idx, m)).amin(dim=1)
+    return torch.where(first == m, torch.full_like(first, -1), first)
+
+
+def corners_3d(boxes: torch.Tensor) -> torch.Tensor:
+    """[N, 7+] → [N, 8, 3] corners: the bottom 4 then the top 4, ccw in BEV."""
+    bev = box_corners_bev(boxes)
+    z0 = boxes[..., 2:3, None].expand(bev.shape[:-1] + (1,))
+    z1 = (boxes[..., 2:3] + boxes[..., 5:6])[..., None].expand(bev.shape[:-1] + (1,))
+    return torch.cat([torch.cat([bev, z0], -1), torch.cat([bev, z1], -1)], dim=-2)
+
+
+def axis_aligned_iou_2d(boxes1: torch.Tensor, boxes2: torch.Tensor) -> torch.Tensor:
+    """IoU matrix [N, M] of xyxy 2D boxes."""
+    x1 = torch.maximum(boxes1[:, None, 0], boxes2[None, :, 0])
+    y1 = torch.maximum(boxes1[:, None, 1], boxes2[None, :, 1])
+    x2 = torch.minimum(boxes1[:, None, 2], boxes2[None, :, 2])
+    y2 = torch.minimum(boxes1[:, None, 3], boxes2[None, :, 3])
+    inter = (x2 - x1).clamp(min=0) * (y2 - y1).clamp(min=0)
+    a1 = (boxes1[:, 2] - boxes1[:, 0]) * (boxes1[:, 3] - boxes1[:, 1])
+    a2 = (boxes2[:, 2] - boxes2[:, 0]) * (boxes2[:, 3] - boxes2[:, 1])
+    return inter / (a1[:, None] + a2[None, :] - inter).clamp(min=1e-8)
+
+
+def hull_canvas_aabb(pts: torch.Tensor, img_w: float, img_h: float):
+    """Axis-aligned box of conv(pts) ∩ [0, W] × [0, H] for [G, N, 2] points,
+    exactly: the extremes lie among the points inside the canvas, the
+    crossings of every point pair's segment with the four border lines, and
+    the canvas corners inside some point triangle. Returns (bboxes [G, 4]
+    xyxy, nonempty [G])."""
+    g, n, _ = pts.shape
+    dev, dt = pts.device, pts.dtype
+    cands = [pts]
+    valids = [(pts[..., 0] >= 0) & (pts[..., 0] <= img_w)
+              & (pts[..., 1] >= 0) & (pts[..., 1] <= img_h)]
+    ii, jj = torch.triu_indices(n, n, offset=1, device=dev)
+    a, b = pts[:, ii], pts[:, jj]
+    d = b - a
+    for axis, c, lo, hi in ((0, 0.0, 0.0, img_h), (0, float(img_w), 0.0, img_h),
+                            (1, 0.0, 0.0, img_w), (1, float(img_h), 0.0, img_w)):
+        other = 1 - axis
+        denom = d[..., axis]
+        small = denom.abs() < 1e-9
+        t = (c - a[..., axis]) / torch.where(small, torch.full_like(denom, 1e-9), denom)
+        p_other = a[..., other] + t * d[..., other]
+        ok = (t >= 0.0) & (t <= 1.0) & ~small & (p_other >= lo) & (p_other <= hi)
+        pt = torch.stack([torch.full_like(p_other, c), p_other], dim=-1)
+        cands.append(pt.flip(-1) if axis == 1 else pt)
+        valids.append(ok)
+    corners = torch.tensor([[0.0, 0.0], [img_w, 0.0], [0.0, img_h], [img_w, img_h]],
+                           dtype=dt, device=dev)
+    ar = torch.arange(n, device=dev)
+    ti, tj, tk = torch.meshgrid(ar, ar, ar, indexing="ij")
+    ti, tj, tk = ti.reshape(-1), tj.reshape(-1), tk.reshape(-1)
+    tri_ok = (ti < tj) & (tj < tk)
+    pa, pb, pc = pts[:, ti], pts[:, tj], pts[:, tk]
+
+    def cross(o, u, v):
+        return ((u[..., 0] - o[..., 0]) * (v[..., 1] - o[..., 1])
+                - (u[..., 1] - o[..., 1]) * (v[..., 0] - o[..., 0]))
+
+    q = corners[None, :, None, :]
+    s1 = cross(pa[:, None], pb[:, None], q)
+    s2 = cross(pb[:, None], pc[:, None], q)
+    s3 = cross(pc[:, None], pa[:, None], q)
+    eps = 1e-6
+    in_tri = (((s1 >= -eps) & (s2 >= -eps) & (s3 >= -eps))
+              | ((s1 <= eps) & (s2 <= eps) & (s3 <= eps)))
+    cands.append(corners[None].expand(g, 4, 2))
+    valids.append((in_tri & tri_ok[None, None, :]).any(dim=-1))
+    allc = torch.cat(cands, dim=1)
+    allv = torch.cat(valids, dim=1)
+    big = torch.full_like(allc[..., 0], 1e9)
+    x1 = torch.where(allv, allc[..., 0], big).amin(dim=1)
+    y1 = torch.where(allv, allc[..., 1], big).amin(dim=1)
+    x2 = torch.where(allv, allc[..., 0], -big).amax(dim=1)
+    y2 = torch.where(allv, allc[..., 1], -big).amax(dim=1)
+    nonempty = allv.any(dim=1)
+    bboxes = torch.stack([x1, y1, x2, y2], dim=1)
+    return torch.where(nonempty[:, None], bboxes, torch.zeros_like(bboxes)), nonempty

@@ -1,7 +1,7 @@
 """Sparse 3D convolution: active voxels in a fixed-capacity ``SparseTensor``,
 rulebooks of per-tap source rows, and the gather convolution that sums
-``feats[rows[k]] @ w[k]`` over the 27 taps (port of ``ops/sparse_conv.py``,
-inference only).
+``feats[rows[k]] @ w[k]`` over the 27 taps, with its backward (port of
+``ops/sparse_conv.py``).
 
 Weight layout ``w[kz*K*K + ky*K + kx, Cin, Cout]``, cross-correlation:
 ``out[p] = Σ_k in[p·s − pad + k] @ w[k]``. Rulebook rows are ``[27, n_out]``
@@ -14,12 +14,20 @@ here it is one ``searchsorted`` over the sorted active keys.
 takes a rulebook's :class:`ConvPlan` (each output row's hit mask and the rows
 sorted by it), made once per rulebook by :func:`plan_rulebook` and shared by
 every conv that uses the rulebook.
+
+The gather-path convs are ``torch.autograd.Function``s with the JAX
+package's scatter-free backward: the input gradient is K1 again, through
+the mirrored rulebook ``rows.flip(0)`` (submanifold) or the inverse-query
+rows of :func:`pair_query_rows` (strided: 'div', inverse: 'mul'), with the
+weights transposed; the weight gradient is :func:`dw_per_tap`
+(``csrc/gather_conv_dw.cu`` on the card). The dense path keeps PyTorch's
+autograd of ``conv3d``.
 """
 from __future__ import annotations
 
 import itertools
 from dataclasses import dataclass, replace
-from typing import NamedTuple, Optional, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -93,6 +101,7 @@ def plan_rulebook(rows: torch.Tensor, n_src: int) -> ConvPlan:
     k3 = rows.shape[0]
     if k3 > 31:
         raise ValueError(f"plan_rulebook: at most 31 taps fit an int32 mask, got {k3}")
+    plan_rulebook.calls += 1
     key = (k3, rows.device)
     if key not in _TAP_BITS:
         _TAP_BITS[key] = torch.tensor([[1 << k] for k in range(k3)], dtype=torch.int32,
@@ -100,6 +109,9 @@ def plan_rulebook(rows: torch.Tensor, n_src: int) -> ConvPlan:
     masks = torch.where(rows < n_src, _TAP_BITS[key], 0).sum(0, dtype=torch.int32)
     order = torch.sort(masks, stable=True).indices.to(torch.int32)
     return ConvPlan(masks=masks, order=order)
+
+
+plan_rulebook.calls = 0
 
 
 def gather_conv(feats: torch.Tensor, rows: torch.Tensor, w: torch.Tensor,
@@ -149,6 +161,81 @@ def gather_conv(feats: torch.Tensor, rows: torch.Tensor, w: torch.Tensor,
 
 
 gather_conv.launches = 0
+
+
+def dw_per_tap_plain(feats: torch.Tensor, rows: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """Plain version of :func:`dw_per_tap`: bf16 operands widened to f32,
+    then per tap a gather and a matmul, ``f_z[rows[k]]ᵀ @ g``."""
+    n_src, cin = feats.shape
+    f_z = torch.cat([feats, feats.new_zeros(1, cin)]).float()
+    gf = g.float()
+    return torch.stack([f_z[rows[k].long()].T @ gf for k in range(rows.shape[0])])
+
+
+def dw_per_tap(feats: torch.Tensor, rows: torch.Tensor, g: torch.Tensor,
+               plan: Optional[ConvPlan] = None) -> torch.Tensor:
+    """Weight gradient of a gather conv: ``d_w[k] = Σ_r feats_z[rows[k, r]]ᵀ ⊗
+    g[r]`` → [K³, Cin, Cout] f32.
+
+    feats [n_src, Cin] bf16 (the forward's input), rows [K³, n_out] i32 (the
+    forward's rulebook, miss → n_src), g [n_out, Cout] bf16 (the output's
+    gradient, masked by validity); ``plan`` is the forward rulebook's
+    ``plan_rulebook(rows, n_src)``, made here when not given. On a CUDA
+    tensor this launches the ``gather_conv_dw`` kernel (Cin and Cout
+    multiples of 8, contiguous inputs); on a CPU tensor it runs
+    :func:`dw_per_tap_plain`."""
+    if feats.dtype != torch.bfloat16 or g.dtype != torch.bfloat16:
+        raise TypeError("dw_per_tap takes bf16 feats and g")
+    if rows.dtype != torch.int32:
+        raise TypeError("dw_per_tap takes int32 rows")
+    if feats.dim() != 2 or rows.dim() != 2 or g.dim() != 2 or g.shape[0] != rows.shape[1]:
+        raise ValueError("dw_per_tap: feats [n, Cin], rows [K3, n_out], g [n_out, Cout]")
+    k3, n_out = rows.shape
+    n_src, cin = feats.shape
+    cout = g.shape[1]
+    if feats.device.type == "cpu":
+        return dw_per_tap_plain(feats, rows, g)
+    if feats.device.type != "cuda" or rows.device != feats.device or g.device != feats.device:
+        raise ValueError("dw_per_tap: all tensors on one CUDA device (or the CPU)")
+    if cin % 8 or cout % 8:
+        raise ValueError(f"dw_per_tap kernel needs Cin, Cout % 8 == 0, got {cin}, {cout}")
+    if not (feats.is_contiguous() and rows.is_contiguous() and g.is_contiguous()):
+        raise ValueError("dw_per_tap: inputs must be contiguous")
+    if feats.data_ptr() % 16 or g.data_ptr() % 16:
+        raise ValueError("dw_per_tap: feats and g must be 16-byte aligned")
+    if plan is None:
+        plan = plan_rulebook(rows, n_src)
+    for t in plan:
+        if t.dtype != torch.int32 or t.shape != (n_out,) or t.device != feats.device \
+                or not t.is_contiguous():
+            raise ValueError("dw_per_tap: plan masks and order must be int32 [n_out] on the device")
+    out = torch.empty(k3, cin, cout, dtype=torch.float32, device=feats.device)
+    splits = dw_splits(n_out, k3, cin, cout)
+    scratch = (torch.empty(splits, k3, cin, cout, dtype=torch.float32, device=feats.device)
+               if splits > 1 else out)
+    kernels.launch(
+        "gather_conv_dw", feats.data_ptr(), n_src, cin, rows.data_ptr(), n_out, k3,
+        g.data_ptr(), cout, plan.order.data_ptr(), plan.masks.data_ptr(), splits,
+        scratch.data_ptr(), out.data_ptr(), torch.cuda.current_stream(feats.device).cuda_stream)
+    dw_per_tap.launches += 1
+    return out
+
+
+dw_per_tap.launches = 0
+
+# the dw kernel's block: 64 Cin x 64 Cout of one tap
+DW_TILE = 64
+# blocks the dw grid aims at: about four per SM of an H100 (132 SMs)
+DW_TARGET_BLOCKS = 4 * 132
+
+
+def dw_splits(n_out: int, k3: int, cin: int, cout: int) -> int:
+    """Row splits of the dw kernel's grid: enough (tap, Cin tile, Cout tile,
+    split) blocks to fill the card, each split at least 8 row tiles long.
+    The splits' partial sums are added in a fixed order by a second pass."""
+    blocks = k3 * -(-cin // DW_TILE) * -(-cout // DW_TILE)
+    row_tiles = -(-n_out // TILE_ROWS)
+    return max(1, min(-(-DW_TARGET_BLOCKS // blocks), row_tiles // 8))
 
 
 # ---------------------------------------------------------------------------
@@ -265,11 +352,68 @@ def _bf16(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.bfloat16).contiguous()
 
 
-def subm_conv_apply(feats, valid, rows, w, plan: ConvPlan) -> torch.Tensor:
+# a conv's backward rulebook: rows [K³, n_in] into its output rows, and K1's plan of them
+BwdRows = Callable[[], Tuple[torch.Tensor, ConvPlan]]
+
+
+class GatherConvFunction(torch.autograd.Function):
+    """``gather_conv(feats, rows, w) · out_valid`` with the scatter-free
+    backward of the JAX package's ``_subm_conv_core`` / ``_pair_conv_core``:
+
+    * ``g`` is masked by ``out_valid`` and cast to bf16;
+    * ``d_feats = gather_conv(g, *bwd_rows(), wᵀ)`` (K1 with the transposed
+      weights, contiguous), masked by ``in_valid`` unless it is None
+      (submanifold), returned in the input's dtype;
+    * ``d_w = dw_per_tap(feats, rows, g)`` through the forward plan, f32.
+
+    ``bwd_rows`` makes the backward rulebook and its plan on the first
+    backward only, so a forward without gradient never pays for it.
+    """
+
+    @staticmethod
+    def forward(ctx, feats, w, rows, plan: ConvPlan, out_valid, in_valid,
+                bwd_rows: BwdRows):
+        f16, w16 = _bf16(feats), _bf16(w)
+        out = gather_conv(f16, rows, w16, plan)
+        out = out * out_valid[:, None].to(out.dtype)
+        ctx.save_for_backward(f16, w16, rows, plan.masks, plan.order, out_valid, in_valid)
+        ctx.feats_dtype, ctx.w_dtype, ctx.bwd_rows = feats.dtype, w.dtype, bwd_rows
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        f16, w16, rows, masks, order, out_valid, in_valid = ctx.saved_tensors
+        g16 = _bf16(g * out_valid[:, None].to(g.dtype))
+        d_feats = d_w = None
+        if ctx.needs_input_grad[0]:
+            b_rows, b_plan = ctx.bwd_rows()
+            d_feats = gather_conv(g16, b_rows, w16.transpose(1, 2).contiguous(), b_plan)
+            if in_valid is not None:
+                d_feats = d_feats * in_valid[:, None].to(d_feats.dtype)
+            d_feats = d_feats.to(ctx.feats_dtype)
+        if ctx.needs_input_grad[1]:
+            d_w = dw_per_tap(f16, rows, g16, ConvPlan(masks=masks, order=order)).to(ctx.w_dtype)
+        return d_feats, d_w, None, None, None, None, None
+
+
+def mirror_rows(rows: torch.Tensor, n_src: int) -> Tuple[torch.Tensor, ConvPlan]:
+    """A submanifold rulebook's mirrored rows ``rows.flip(0)`` (the tap set
+    is symmetric, o_{K³−1−k} = −o_k) and their K1 plan: the rulebook of the
+    submanifold conv's input gradient."""
+    m = rows.flip(0).contiguous()
+    return m, plan_rulebook(m, n_src)
+
+
+def subm_conv_apply(feats, valid, rows, w, plan: ConvPlan,
+                    bwd_rows: Optional[BwdRows] = None) -> torch.Tensor:
     """Submanifold conv through a prebuilt rulebook and its plan: bf16
-    operands, f32 accumulation, output masked by validity."""
-    out = gather_conv(_bf16(feats), rows, _bf16(w), plan)
-    return out * valid[:, None].to(out.dtype)
+    operands, f32 accumulation, output masked by validity. ``bwd_rows``
+    gives the mirrored rulebook and plan (a stage shares one); by default
+    the backward makes them."""
+    if bwd_rows is None:
+        def bwd_rows():
+            return mirror_rows(rows, rows.shape[1])
+    return GatherConvFunction.apply(feats, w, rows, plan, valid, None, bwd_rows)
 
 
 def sparse_conv3d(st: SparseTensor, w, kernel_size, stride, padding, out_capacity) -> SparseTensor:
@@ -278,8 +422,14 @@ def sparse_conv3d(st: SparseTensor, w, kernel_size, stride, padding, out_capacit
         st, kernel_size, stride, padding, out_capacity)
     rows = pair_query_rows(out_coords, out_batch, out_valid, st.coords, st.batch, st.valid,
                            st.dims, kernel_size, stride, padding, "mul")
-    out = gather_conv(_bf16(st.feats), rows, _bf16(w), plan_rulebook(rows, st.capacity))
-    out = out * out_valid[:, None].float()
+
+    def bwd_rows():   # input x ← output (x + p − o_k) / s
+        r = pair_query_rows(st.coords, st.batch, st.valid, out_coords, out_batch, out_valid,
+                            out_dims, kernel_size, stride, padding, "div")
+        return r, plan_rulebook(r, out_capacity)
+
+    out = GatherConvFunction.apply(st.feats, w, rows, plan_rulebook(rows, st.capacity),
+                                   out_valid, st.valid, bwd_rows)
     return SparseTensor(feats=out, coords=out_coords, batch=out_batch, valid=out_valid,
                         dims=out_dims, batch_size=st.batch_size)
 
@@ -290,8 +440,14 @@ def sparse_inverse_conv3d(st: SparseTensor, target: SparseTensor, w, kernel_size
     from coarse y where t = y·s − p + k."""
     rows = pair_query_rows(target.coords, target.batch, target.valid, st.coords, st.batch,
                            st.valid, st.dims, kernel_size, stride, padding, "div")
-    out = gather_conv(_bf16(st.feats), rows, _bf16(w), plan_rulebook(rows, st.capacity))
-    out = out * target.valid[:, None].float()
+
+    def bwd_rows():   # coarse y ← fine y·s − p + o_k
+        r = pair_query_rows(st.coords, st.batch, st.valid, target.coords, target.batch,
+                            target.valid, target.dims, kernel_size, stride, padding, "mul")
+        return r, plan_rulebook(r, target.capacity)
+
+    out = GatherConvFunction.apply(st.feats, w, rows, plan_rulebook(rows, st.capacity),
+                                   target.valid, st.valid, bwd_rows)
     return target.replace(feats=out)
 
 

@@ -4,7 +4,8 @@ NumPy generators that give, for the same seed, the same arrays as the JAX
 package's test fixtures (``make_scene``, ``make_lidar_scene``,
 ``make_camera_data``, ``with_noaug_channels``) and its ``pack_mask_scores``.
 The ``*_arrays`` functions return plain NumPy dicts; ``to_point_batch`` /
-``to_camera_data`` move them into the port's containers on a device.
+``to_camera_data`` / ``to_ground_truth`` move them into the port's
+containers on a device.
 ``ccl_problem_arrays`` builds the CCL kernel's hard inputs.
 """
 from __future__ import annotations
@@ -15,7 +16,7 @@ import numpy as np
 import torch
 
 from .models.camera import CameraData
-from .utils.containers import PointBatch
+from .utils.containers import GroundTruth, PointBatch
 
 
 def make_scene_arrays(
@@ -305,6 +306,15 @@ def to_point_batch(arrays: Dict[str, np.ndarray], device="cuda") -> PointBatch:
         points=torch.as_tensor(arrays["points"], device=device),
         batch_idx=torch.as_tensor(arrays["batch_idx"], device=device),
         valid=torch.as_tensor(arrays["valid"], device=device),
+    )
+
+
+def to_ground_truth(arrays: Dict[str, np.ndarray], device="cuda") -> GroundTruth:
+    """The scene's padded GT (``gt_boxes``, ``gt_labels``, ``gt_valid``)."""
+    return GroundTruth(
+        boxes=torch.as_tensor(arrays["gt_boxes"], device=device),
+        labels=torch.as_tensor(arrays["gt_labels"], device=device),
+        valid=torch.as_tensor(arrays["gt_valid"], device=device),
     )
 
 

@@ -9,6 +9,10 @@ layout transforms:
 - LayerNorm / BatchNorm ``scale`` → ``weight``, ``bias`` → ``bias``;
 - BatchNorm ``batch_stats/{mean,var}`` → ``running_mean`` / ``running_var``;
 - sparse-conv ``w [27, Cin, Cout]`` as is.
+
+A JAX gradient tree has the structure of ``params``, so
+``from_jax_variables({"params": grads})`` maps it, with the same layout
+transforms, onto the names of ``model.named_parameters()``.
 """
 from __future__ import annotations
 
@@ -37,8 +41,9 @@ def _flatten(tree: Mapping, prefix=()):
 
 
 def from_jax_variables(tree: Mapping) -> Dict[str, torch.Tensor]:
-    """``{"params": ..., "batch_stats": ...}`` (nested dicts of arrays) →
-    a ``state_dict`` for the port's module of the same structure. Raises on
+    """``{"params": ..., "batch_stats": ...}`` (nested dicts of arrays; either
+    collection may be absent, and ``params`` may hold gradients) → a
+    ``state_dict`` for the port's module of the same structure. Raises on
     any leaf it cannot map."""
     out: Dict[str, torch.Tensor] = {}
     for collection, sub in tree.items():

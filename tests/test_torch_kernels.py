@@ -11,12 +11,15 @@ with ``test_torch_ops.py``, which holds the plain versions to the JAX package.
 
 Tolerances: K1 takes bf16 operands whose products are exact in f32, so the
 kernel and the plain version differ only in the order of the f32 sums: 1e-4
-of the output's magnitude. K2 and K3 are bitwise.
+of the output's magnitude. ``dw_per_tap`` likewise sums exact bf16 products
+in f32, over up to n_out rows: 1e-4 of each tap's ``||d_w[k]||`` (and exactly
+0 for a tap nothing hits). K2 and K3 are bitwise.
 """
 import numpy as np
 import pytest
 import torch
 
+from fullysparsefusion_tpu_torch.models.sparse_unet import SubmRulebook
 from fullysparsefusion_tpu_torch.ops import ccl, geometry, nms, sparse_conv
 from fullysparsefusion_tpu_torch.synthetic import ccl_problem_arrays
 
@@ -91,6 +94,107 @@ def test_gather_conv_kernel_adversarial_rulebooks(cuda, case):
     assert float((got - ref).abs().max()) <= 1e-4 * max(1.0, float(ref.abs().max()))
     if case == "every_slot_misses":
         assert not got.any()
+
+# --- dw_per_tap: the gather conv's weight gradient ----------------------------
+
+DW_RTOL = 1e-4
+
+
+def _dw_close(got, ref):
+    diff = (got - ref).flatten(1).norm(dim=1)
+    assert bool((diff <= DW_RTOL * ref.flatten(1).norm(dim=1)).all()), float(diff.max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["random", "every_slot_misses", "one_hit_per_row",
+                                  "padding_tiles", "cin16_cout48"])
+@pytest.mark.parametrize("n_out", [1000, 20000 - 77])
+def test_dw_per_tap_kernel_matches_plain(cuda, case, n_out):
+    """The adversarial rulebooks of K1, at one row split (1,000 rows) and at
+    several (19,923 rows: partial sums added by the second pass); g stands
+    for the output gradient. Two runs are bitwise equal."""
+    gen = torch.Generator().manual_seed(2)
+    feats, rows, _ = _adversarial_rulebook(case, gen)
+    if n_out > rows.shape[1]:
+        rows = rows.repeat(1, -(-n_out // rows.shape[1]))[:, :n_out].contiguous()
+    g = torch.randn(rows.shape[1], 48 if case == "cin16_cout48" else 128,
+                    generator=gen).to(torch.bfloat16)
+    args = [a.to(cuda) for a in (feats, rows, g)]
+    got = sparse_conv.dw_per_tap(*args)
+    again = sparse_conv.dw_per_tap(*args, sparse_conv.plan_rulebook(args[1], feats.shape[0]))
+    ref = sparse_conv.dw_per_tap_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    _dw_close(got, ref)
+    if case == "every_slot_misses":
+        assert not got.any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cin,cout", [(16, 16), (64, 48), (256, 128), (512, 512), (1024, 256)])
+def test_dw_per_tap_kernel_widths(cuda, cin, cout):
+    gen = torch.Generator().manual_seed(cin + cout)
+    n_src, n_out = 2000, 5000
+    feats = torch.randn(n_src, cin, generator=gen).to(torch.bfloat16)
+    rows = torch.randint(0, 4 * n_src, (27, n_out), generator=gen, dtype=torch.int32)
+    rows = torch.where(rows < n_src, rows, torch.full_like(rows, n_src))
+    g = torch.randn(n_out, cout, generator=gen).to(torch.bfloat16)
+    args = [a.to(cuda) for a in (feats, rows, g)]
+    _dw_close(sparse_conv.dw_per_tap(*args), sparse_conv.dw_per_tap_plain(*args))
+
+
+def _active_set(n, cap, dims=(48, 48, 16), batch_size=2, seed=0):
+    """A key-sorted, clumped active set of ``n`` voxels (capacity ``cap``)."""
+    rng = np.random.default_rng(seed)
+    nx, ny, nz = dims
+    centers = rng.uniform(0, 1, (8, 4)) * [batch_size, nz, ny, nx]
+    pts = centers[rng.integers(0, 8, 4 * n)] + rng.normal(0, [0, 2, 5, 5], (4 * n, 4))
+    b, z, y, x = [np.clip(np.floor(pts[:, i]), 0, m - 1).astype(np.int64)
+                  for i, m in enumerate((batch_size, nz, ny, nx))]
+    keys = np.unique(((b * nz + z) * ny + y) * nx + x)[:n]
+    n = len(keys)
+    coords = np.zeros((cap, 3), np.int32)
+    batch = np.zeros(cap, np.int32)
+    coords[:n] = np.stack([keys % nx, keys // nx % ny, keys // (nx * ny) % nz], 1)
+    batch[:n] = keys // (nx * ny * nz)
+    return sparse_conv.SparseTensor(feats=torch.zeros(cap, 1), coords=t(coords), batch=t(batch),
+                                    valid=t(np.arange(cap) < n), dims=dims,
+                                    batch_size=batch_size)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cin,cout", [(64, 128), (128, 512), (1024, 256)])
+def test_subm_conv_backward_runs_the_kernels(cuda, cin, cout):
+    """A submanifold conv's backward on the card: d_feats is K1 over the
+    mirrored rows with wᵀ (Cout = the forward's Cin, up to 1024, so the
+    kernel's column blocks pass 256), d_w is dw_per_tap; each against its
+    plain version on the same inputs. The stage's mirrored plan equals
+    ``plan_rulebook(rows.flip(0))``."""
+    st = _active_set(3000, 4096)
+    st = st.replace(coords=st.coords.to(cuda), batch=st.batch.to(cuda), valid=st.valid.to(cuda))
+    rb = SubmRulebook(st)
+    gen = torch.Generator().manual_seed(3)
+    feats = (torch.randn(4096, cin, generator=gen) * st.valid.cpu()[:, None]).to(cuda)
+    feats = feats.to(torch.bfloat16).requires_grad_(True)
+    w = (torch.randn(27, cin, cout, generator=gen) / (27 * cin) ** 0.5).to(cuda)
+    w.requires_grad_(True)
+    cot = torch.randn(4096, cout, generator=gen).to(cuda)
+    k1, dw = sparse_conv.gather_conv.launches, sparse_conv.dw_per_tap.launches
+    out = sparse_conv.subm_conv_apply(feats, st.valid, rb.rows, w, rb.plan, rb.mirror)
+    out.backward(cot)
+    torch.cuda.synchronize()
+    assert sparse_conv.gather_conv.launches - k1 == 2 and sparse_conv.dw_per_tap.launches - dw == 1
+    rows_m, plan_m = rb.mirror()
+    ref_plan = sparse_conv.plan_rulebook(rb.rows.flip(0), st.capacity)
+    assert torch.equal(plan_m.masks, ref_plan.masks) and torch.equal(plan_m.order, ref_plan.order)
+    g16 = (cot * st.valid[:, None]).to(torch.bfloat16)
+    w16 = w.detach().to(torch.bfloat16)
+    ref = sparse_conv.gather_conv_plain(g16, rows_m, w16.transpose(1, 2).contiguous())
+    got = feats.grad.float()
+    # d_feats returns in the input's dtype, bf16: one bf16 ulp
+    assert float((got - ref).abs().max()) <= 4e-3 * max(1.0, float(ref.abs().max()))
+    _dw_close(w.grad, sparse_conv.dw_per_tap_plain(feats.detach(), rb.rows, g16))
+
 
 # --- K2: CCL roots -----------------------------------------------------------
 
