@@ -21,8 +21,11 @@ Phases, each of which ends the script with a non-zero exit on failure:
    K1 also runs adversarial rulebooks made on the card (an all-miss tile,
    every slot a miss, exactly one hit per row, ``n_out`` off the tile, Cin 16
    / Cout 48), K2 the problems of ``synthetic.ccl_problem_arrays`` (the
-   reversed chain, one component of all N nodes, N = 1,000 and 8,192,
-   coincident points, mixed batch ids, all invalid), each timed;
+   reversed chain, one component of all N nodes, N = 1,000, 8,192 and
+   12,000, coincident points, mixed batch ids, all invalid) and 50,000 nodes
+   of ``synthetic.ccl_known_components`` against their known components,
+   K3 N = 15,360 (a batch of 12 x 1,280 queries, past the scan's shared
+   memory), each timed;
 5. train: full-width FSF training at batch 1 on the seed-0 bench scene with
    its own GT, through ``parallel.train.train_step`` (AdamW, lr 1e-4 over
    100 steps, the segmentor core at 0.2): two warm-up steps, then five
@@ -32,10 +35,14 @@ Phases, each of which ends the script with a non-zero exit on failure:
    finite and fall, and every major submodule must get a gradient. One more
    step's backward calls of K1 (input gradients) and of ``dw_per_tap``
    (weight gradients) are captured and held to their plain versions on the
-   card, each timed by CUDA-graph replay. Before all of it a tiny-config
-   forward + backward runs on the GPU and on the CPU from the same weights:
-   with eval-form BN the losses and the gradient tree must agree, with
-   train-form BN the losses (``small_train_reference_check`` says why).
+   card, each timed by CUDA-graph replay (``dw_per_tap``'s work list also
+   held to its plain version, with each call's ``tile_fill`` and a
+   ``torch.bmm`` yardstick, ``bmm_ms``), then ``dw_per_tap`` runs
+   adversarial rulebooks (every hit in one row tile among them). Before all
+   of it a tiny-config forward + backward runs on the GPU and on the CPU
+   from the same weights: with eval-form BN the losses and the gradient tree
+   must agree, with train-form BN the losses (``small_train_reference_check``
+   says why).
 
 The last lines are a ``{"kernels": [...]}`` JSON object, the card's name and
 power limit from ``nvidia-smi``, and ``{"ok": true, "device": {...}}``.
@@ -148,6 +155,22 @@ def capture_calls(module, name: str, sink: list):
 
     # the wrapper counts its launches on the module attribute of its name
     recorder.launches = 0
+    setattr(module, name, recorder)
+    try:
+        yield
+    finally:
+        setattr(module, name, orig)
+
+
+@contextlib.contextmanager
+def capture_results(module, name: str, sink: list):
+    """Record what every call of ``module.name`` returns."""
+    orig = getattr(module, name)
+
+    def recorder(*args):
+        sink.append(orig(*args))
+        return sink[-1]
+
     setattr(module, name, recorder)
     try:
         yield
@@ -352,15 +375,24 @@ def check_ccl_roots(xy, batch, valid, what: str):
 
 # (case of synthetic.ccl_problem_arrays, G, N)
 CCL_ADVERSARIAL = (("reversed_chain", 6, 1024), ("grid", 6, 1024), ("random", 6, 1000),
-                   ("random", 1, 8192), ("coincident", 6, 1024), ("mixed_batch", 6, 1024),
-                   ("all_invalid", 6, 1024))
+                   ("random", 1, 8192), ("random", 1, 12000), ("coincident", 6, 1024),
+                   ("mixed_batch", 6, 1024), ("all_invalid", 6, 1024))
+# N of synthetic.ccl_known_components: parent[] in device memory past ~46k
+# nodes; each case (chain length, runs) is run that many times, since the
+# union-find's hooks and path halving interleave differently each run
+CCL_KNOWN_N = 50000
+CCL_KNOWN_CASES = ((100, 10), (45000, 10))
 
 
 def adversarial_ccl_roots():
     """K2 on the inputs that are hard for a sweep-based CCL (the reversed
     chain: one sweep per hop; one component of all N nodes), N off the word
-    and at the wrapper's largest, complete graphs, batch ids that split them
-    and all-invalid nodes: bitwise against the plain version, each timed."""
+    and past the old 8,192 cap (12,000: parent[] in opted-in shared memory),
+    complete graphs, batch ids that split them and all-invalid nodes: bitwise
+    against the plain version, each timed. Then 50,000 nodes (parent[] in
+    device memory), too many for the plain version's [N, N] distances,
+    against components known by construction, ten runs each of chains of
+    100 with stacks of 50 and of one chain of 45,000 nodes."""
     from fullysparsefusion_tpu_torch import synthetic as S
     from fullysparsefusion_tpu_torch.ops import ccl
 
@@ -372,8 +404,53 @@ def adversarial_ccl_roots():
         cases[f"{case}_g{g}_n{n}"] = {
             "components": components(got), "plain_sweeps": sweeps,
             "ms": round(time_ms(functools.partial(ccl.ccl_roots, xy, batch, valid), 20), 5)}
+        del xy, batch, valid, got
+        torch.cuda.empty_cache()
+    for chain, runs in CCL_KNOWN_CASES:
+        xy, batch, valid, roots = (torch.as_tensor(a, device="cuda")
+                                   for a in S.ccl_known_components(CCL_KNOWN_N, chain=chain))
+        call = functools.partial(ccl.ccl_roots, xy, batch, valid)
+        for run in range(runs):
+            got = call()
+            if not torch.equal(got, roots):
+                fail(f"ccl_roots misses the known components at N={CCL_KNOWN_N}, chains of "
+                     f"{chain}, run {run}, at {int((got != roots).sum())} nodes")
+        cases[f"known_components_chain{chain}_g1_n{CCL_KNOWN_N}"] = {
+            "components": components(got), "runs": runs, "ms": round(time_ms(call, 5), 5)}
     log({"phase": "kernel_adversarial", "kernel": "ccl_roots", "tolerance": 0,
          "cases": cases})
+
+
+# K3 past the scan's shared-memory staging: a batch of 12 x 1,280 queries, C = 3
+NMS_LARGE_N, NMS_LARGE_C, NMS_SAMPLE = 15360, 3, 1280
+
+
+def large_nms_keep():
+    """K3 at N = 15,360: the scan reads its 64-row mask blocks from device
+    memory. A random symmetric IoU with ties (multiples of 1/8) inside each
+    sample's 1,280 rows and zero across samples, as the batched NMS gives
+    it; bitwise against the plain version, and timed."""
+    from fullysparsefusion_tpu_torch.ops import nms
+
+    n, c = NMS_LARGE_N, NMS_LARGE_C
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    m = torch.rand(n, n, generator=gen, device="cuda")
+    sample = torch.arange(n, device="cuda") // NMS_SAMPLE
+    iou = torch.where(sample[:, None] == sample[None, :], torch.round((m + m.T) * 4) / 8, 0.0)
+    iou.fill_diagonal_(1.0)
+    del m
+    order, vs = nms.class_orders(torch.rand(c, n, generator=gen, device="cuda"),
+                                 torch.rand(c, n, generator=gen, device="cuda") > 0.3)
+    vs = vs.contiguous()
+    got = nms.nms_keep(iou, order, vs, 0.5)
+    ref = nms.nms_keep_plain(iou, order, vs, 0.5)
+    if not torch.equal(got, ref):
+        fail(f"nms_keep differs from its plain version at N={n} at {int((got != ref).sum())} rows")
+    del ref
+    torch.cuda.empty_cache()
+    log({"phase": "kernel_adversarial", "kernel": "nms_keep", "tolerance": 0, "C": c, "N": n,
+         "kept": int(got.sum()), "valid": int(vs.sum()),
+         "ms": round(time_ms(functools.partial(nms.nms_keep, iou, order, vs, 0.5), 5), 5)})
 
 
 def check_kernels(model, request):
@@ -459,6 +536,7 @@ def check_kernels(model, request):
     log({"phase": "kernel_calls", "kernel": "nms_keep", "C": c, "N": n,
          "kept": int(got.sum()), "valid": int(vs.sum()),
          "ms": round(results["nms_keep"]["ms"], 5), "eager_ms": round(eager_ms(call, 20), 5)})
+    large_nms_keep()
     return results
 
 
@@ -681,7 +759,10 @@ def check_train_kernels(model, opt, batch, step: int):
          "calls": rows_out, "ms": round(tot["ms"], 4), "bound_ms": round(tot["bound_ms"], 5)})
     results["gather_conv_bwd"] = tot
 
-    rows_out, tot = [], dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, err=0.0, flop=0.0, byte=0.0)
+    rows_out = []
+    tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, bmm_ms=0.0, err=0.0, flop=0.0, byte=0.0,
+               hits=0, hit_tiles=0)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     for feats, rows, g, plan in dw_calls:
         err = check_dw_per_tap(feats, rows, g, plan)
         n_src, cin = feats.shape
@@ -694,27 +775,55 @@ def check_train_kernels(model, opt, batch, step: int):
         ms = time_ms(lambda: sparse_conv.dw_per_tap(feats, rows, g, plan), 20)
         plain_ms = eager_ms(lambda: sparse_conv.dw_per_tap_plain(feats, rows, g), 3)
         bound = max(flop / PEAK_BF16_FLOPS, byte / PEAK_BYTES) * 1e3
+        n_chunks = sparse_conv.dw_chunk_slots(cin, cout, sms, k3)
+        lists = []                                # the work list that the product consumed
+        with capture_results(sparse_conv, "dw_work_list", lists):
+            sparse_conv.dw_per_tap(feats, rows, g, plan)
+        work = lists[0]
+        ref = sparse_conv.dw_work_list(sparse_conv.ConvPlan(*(a.cpu() for a in plan)), k3, n_chunks)
+        if not all(torch.equal(a.cpu(), b) for a, b in zip(work, ref)):
+            fail(f"dw_per_tap's work list differs from its plain version ({n_out} rows)")
+        hit_tiles = int(work.tap_tiles.sum())
         rows_out.append({"n_src": n_src, "n_out": n_out, "cin": cin, "cout": cout, "hits": hits,
-                         "splits": sparse_conv.dw_splits(n_out, k3, cin, cout),
+                         "hit_tiles": hit_tiles, "chunks": int((work.chunks[:, 2] > 0).sum()),
+                         "tile_fill": round(hits / max(1, sparse_conv.TILE_ROWS * hit_tiles), 4),
                          "ms": round(ms, 4), "plain_ms": round(plain_ms, 4),
+                         "bmm_ms": round(bmm_ms(feats, rows, g), 4),
                          "bound_ms": round(bound, 5), "max_abs_err": err})
         for k, v in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", bound), ("flop", flop),
-                     ("byte", byte)):
+                     ("byte", byte), ("bmm_ms", rows_out[-1]["bmm_ms"]), ("hits", hits),
+                     ("hit_tiles", hit_tiles)):
             tot[k] += v
         tot["err"] = max(tot["err"], err)
+    tile_fill = tot["hits"] / max(1, sparse_conv.TILE_ROWS * tot["hit_tiles"])
     log({"phase": "train_kernel_calls", "kernel": "dw_per_tap", "tolerance": DW_RTOL,
-         "calls": rows_out, "ms": round(tot["ms"], 4), "bound_ms": round(tot["bound_ms"], 5)})
+         "calls": rows_out, "ms": round(tot["ms"], 4), "bound_ms": round(tot["bound_ms"], 5),
+         "bmm_ms": round(tot["bmm_ms"], 4), "tile_fill": round(tile_fill, 4)})
     results["dw_per_tap"] = dict(
         max_abs_err=tot["err"], ms=tot["ms"], plain_ms=tot["plain_ms"], bound_ms=tot["bound_ms"],
         bound_by="operations" if tot["flop"] / PEAK_BF16_FLOPS > tot["byte"] / PEAK_BYTES
-        else "bytes")
+        else "bytes", bmm_ms=tot["bmm_ms"], tile_fill=tile_fill)
     return results
+
+
+def bmm_ms(feats, rows, g) -> float:
+    """A yardstick for dw_per_tap, never called by the port: one
+    ``torch.bmm`` of [K³, Cin, n_out] x [K³, n_out, Cout] bf16 over operands
+    gathered before the timing. It leaves out the row gather, multiplies
+    every row of every tap (misses included) and writes bf16."""
+    f_z = torch.cat([feats, feats.new_zeros(1, feats.shape[1])])
+    a = f_z[rows.long()].transpose(1, 2)               # [K³, Cin, n_out]
+    b = g.expand(rows.shape[0], *g.shape)              # [K³, n_out, Cout]
+    ms = time_ms(lambda: torch.bmm(a, b), 5)
+    del a, f_z
+    return ms
 
 
 def adversarial_dw_per_tap(shapes=((16, 16), (64, 48), (128, 256), (512, 512))):
     """dw_per_tap on rulebooks made on the card to hit its edges: every slot a
-    miss, exactly one hit per row, a run of padding tiles, ``n_out`` off the
-    tile and Cin / Cout from 16 to 512."""
+    miss, exactly one hit per row, a run of padding tiles, every hit in one
+    row tile of the sorted order (each tap's list is one tile), ``n_out`` off
+    the tile and Cin / Cout from 16 to 512."""
     from fullysparsefusion_tpu_torch.ops import sparse_conv
 
     g = torch.Generator(device="cuda").manual_seed(1)
@@ -731,8 +840,11 @@ def adversarial_dw_per_tap(shapes=((16, 16), (64, 48), (128, 256), (512, 512))):
         one[tap, torch.arange(n_out, device="cuda")] = rows[0]
         pad = rows.clone()
         pad[:, 1000:3000] = n_src
+        one_tile = torch.full_like(rows, n_src)
+        one_tile[:, 4000:4100] = rows[:, 4000:4100]
         for name, r in (("random", rows), ("every_slot_misses", torch.full_like(rows, n_src)),
-                        ("one_hit_per_row", one), ("padding_tiles", pad)):
+                        ("one_hit_per_row", one), ("padding_tiles", pad),
+                        ("hits_in_one_tile", one_tile)):
             errs[f"{name}_{cin}x{cout}"] = check_dw_per_tap(feats, r.contiguous(), gr)
     log({"phase": "kernel_adversarial", "kernel": "dw_per_tap", "tolerance": DW_RTOL,
          "max_abs_err": errs})
@@ -808,6 +920,8 @@ def main() -> int:
                  "ms": st["ms"], "plain_ms": st["plain_ms"], "bound_ms": st["bound_ms"],
                  "bound_by": st["bound_by"], "library_ms": None,
                  "train_launches_per_step": train_launches[name] / TRAIN_STEPS}
+        if name == "dw_per_tap":
+            entry["bmm_ms"], entry["tile_fill"] = st["bmm_ms"], st["tile_fill"]
         if name == "gather_conv":
             entry["train_launches_per_step_by_pass"] = k1_per_step
             bwd = train_stats["gather_conv_bwd"]

@@ -27,8 +27,13 @@
 //    with --fmad=false) so no FMA contraction changes which near-threshold
 //    pairs join: the same floats as the plain version's (xi - xj)^2 sum.
 // 2. ccl_union_find: one block per problem, parent[N] and the validity in
-//    shared memory (40 KB at N = 8192). A warp per valid row reads the
-//    row's words coalesced, and each lane unites i with every set bit of
+//    shared memory (5 bytes a node, opted in up to the block's limit: N up
+//    to 46,489 on an H100); past that, parent[] lives in a [G, N] scratch
+//    in device memory (L2) that the wrapper allocates, apart from roots[]
+//    (so the path-halving stores of the last pass land in the scratch and
+//    only a node's own thread writes its root), and the validity is read
+//    where it lies: any N whose bitmask fits on the card runs. A warp per
+//    valid row reads the row's words coalesced, and each lane unites i with every set bit of
 //    its word: find both roots with path halving, hook the larger root
 //    under the smaller with atomicCAS, retry on conflict (ECL-CC). A parent
 //    never exceeds its child, so each tree's root is its minimum; once
@@ -38,6 +43,8 @@
 //    the diameter.
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "device.cuh"
 
 namespace {
 
@@ -110,14 +117,16 @@ __device__ void unite(volatile int* parent, int a, int b) {
 
 __global__ void __launch_bounds__(UF_THREADS)
 ccl_union_find(const uint8_t* __restrict__ valid, int n, int nw,
-               const uint32_t* __restrict__ bits, int* __restrict__ roots) {
+               const uint32_t* __restrict__ bits, bool in_smem, int* parent_mem,
+               int* __restrict__ roots) {
   extern __shared__ int parent_smem[];
-  volatile int* parent = parent_smem;
-  uint8_t* sval = reinterpret_cast<uint8_t*>(parent_smem + n);
   const size_t base = (size_t)blockIdx.x * n;
+  volatile int* parent = in_smem ? parent_smem : parent_mem + base;
+  uint8_t* val_smem = reinterpret_cast<uint8_t*>(parent_smem + n);
+  const uint8_t* sval = in_smem ? val_smem : valid + base;
   for (int i = threadIdx.x; i < n; i += blockDim.x) {
     parent[i] = i;
-    sval[i] = valid[base + i];
+    if (in_smem) val_smem[i] = valid[base + i];
   }
   __syncthreads();
 
@@ -148,11 +157,12 @@ ccl_union_find(const uint8_t* __restrict__ valid, int n, int nw,
 }  // namespace
 
 // xy [g, n, 2] f32, batch [g, n] i32, valid [g, n] u8; bits: scratch of
-// g * n * ceil(n / 32) u32; roots [g, n] i32. n <= 8192
-// (parent[] and validity in shared memory; checked by the Python wrapper).
-// Returns a cudaError_t (0 on success).
+// g * n * ceil(n / 32) u32; parent: scratch of g * n i32 (used where
+// parent[] does not fit in shared memory); roots [g, n] i32 (checked by the
+// Python wrapper). Returns a cudaError_t (0 on success).
 extern "C" int fsf_ccl_roots(const void* xy, const void* batch, const void* valid,
-                             int g, int n, void* bits, void* roots, void* stream) {
+                             int g, int n, void* bits, void* parent, void* roots,
+                             void* stream) {
   if (g <= 0 || n <= 0) return static_cast<int>(cudaGetLastError());
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int nw = (n + 31) / 32;
@@ -161,10 +171,19 @@ extern "C" int fsf_ccl_roots(const void* xy, const void* batch, const void* vali
   ccl_adjacency_bits<<<(unsigned)blocks, BITS_THREADS, 0, st>>>(
       static_cast<const float*>(xy), static_cast<const int*>(batch),
       static_cast<const uint8_t*>(valid), g, n, nw, static_cast<uint32_t*>(bits));
-  const int err = static_cast<int>(cudaGetLastError());
+  int err = static_cast<int>(cudaGetLastError());
   if (err != 0) return err;
-  ccl_union_find<<<g, UF_THREADS, (size_t)n * (sizeof(int) + 1), st>>>(
-      static_cast<const uint8_t*>(valid), n, nw, static_cast<const uint32_t*>(bits),
-      static_cast<int*>(roots));
+  // parent[] and validity in shared memory where they fit the opt-in limit
+  int dev = 0;
+  cudaGetDevice(&dev);
+  const bool in_smem = (long long)n * (sizeof(int) + 1) <= fsf::optin_smem(dev);
+  const int uf_smem = in_smem ? n * (int)(sizeof(int) + 1) : 0;
+  static fsf::SmemLimit uf_limit;
+  err = static_cast<int>(
+      uf_limit.raise(reinterpret_cast<const void*>(ccl_union_find), dev, uf_smem));
+  if (err != 0) return err;
+  ccl_union_find<<<g, UF_THREADS, uf_smem, st>>>(
+      static_cast<const uint8_t*>(valid), n, nw, static_cast<const uint32_t*>(bits), in_smem,
+      static_cast<int*>(parent), static_cast<int*>(roots));
   return static_cast<int>(cudaGetLastError());
 }

@@ -3,8 +3,9 @@
 Each source is compiled by ``nvcc`` for ``sm_90a`` into its own shared
 library with a plain C interface and loaded with ``ctypes``. Libraries go to
 ``build/torch_kernels/`` at the repository root, named by a hash of the
-source and flags, so a changed source rebuilds and an unchanged one loads
-as is. :func:`build_all` starts one ``nvcc`` per source at once.
+source, the shared headers (``csrc/*.cuh``) and the flags, so a changed
+source rebuilds and an unchanged one loads as is. :func:`build_all` starts
+one ``nvcc`` per source at once.
 
 Nothing here runs at import time: the first call of a kernel wrapper on a
 CUDA tensor builds (if needed) and loads its library.
@@ -25,15 +26,19 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "torch_kernels")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
-# name -> (source file, extra nvcc flags, C symbol, argtypes)
+# name -> (source file, extra nvcc flags, C symbol, argtypes); names that
+# share a source and flags share one library
 KERNELS = {
     "gather_conv": ("gather_conv.cu", [], "fsf_gather_conv",
                     [_P, _I, _I, _P, _I, _I, _P, _I, _P, _P, _P, _P]),
+    # the dw kernel's work list, then its product and sum over that list
+    "gather_conv_dw_list": ("gather_conv_dw.cu", [], "fsf_dw_work_list",
+                            [_P, _P, _I, _I, _I, _P, _P]),
     "gather_conv_dw": ("gather_conv_dw.cu", [], "fsf_gather_conv_dw",
-                       [_P, _I, _I, _P, _I, _I, _P, _I, _P, _P, _I, _P, _P, _P]),
+                       [_P, _I, _I, _P, _I, _I, _P, _I, _P, _I, _I, _P, _P, _P, _P]),
     # no FMA contraction anywhere in the CCL distance test
     "ccl": ("ccl.cu", ["--fmad=false"], "fsf_ccl_roots",
-            [_P, _P, _P, _I, _I, _P, _P, _P]),
+            [_P, _P, _P, _I, _I, _P, _P, _P, _P]),
     "nms": ("nms.cu", [], "fsf_nms_keep",
             [_P, _P, _P, _I, _I, _F, _P, _P, _P]),
 }
@@ -57,37 +62,42 @@ def _nvcc() -> str:
 
 def _lib_path(name: str) -> str:
     src, flags, _, _ = KERNELS[name]
-    with open(os.path.join(CSRC_DIR, src), "rb") as f:
-        digest = hashlib.sha1(f.read() + repr(_BASE_FLAGS + flags).encode()).hexdigest()[:12]
-    return os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+    h = hashlib.sha1(repr(_BASE_FLAGS + flags).encode())
+    for f in [src, *headers]:
+        with open(os.path.join(CSRC_DIR, f), "rb") as fh:
+            h.update(fh.read())
+    digest = h.hexdigest()[:12]
+    return os.path.join(BUILD_DIR, f"lib{os.path.splitext(src)[0]}-{digest}.so")
 
 
 def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
-    """Compile every (or the named) kernel library that is not built yet,
+    """Compile every (or the named) kernel's library that is not built yet,
     one ``nvcc`` process per source, all started together. Returns the
-    seconds each build took (0.0 for one already built); raises with the
-    compiler's output if any build fails."""
-    names = list(names or KERNELS)
+    seconds each source's build took (0.0 for one already built); raises
+    with the compiler's output if any build fails."""
     os.makedirs(BUILD_DIR, exist_ok=True)
     procs = {}
     seconds = {}
-    for name in names:
-        path = _lib_path(name)
-        if os.path.exists(path):
-            seconds[name] = 0.0
-            continue
+    for name in names or KERNELS:
         src, flags, _, _ = KERNELS[name]
+        path = _lib_path(name)
+        if src in seconds or src in procs:
+            continue
+        if os.path.exists(path):
+            seconds[src] = 0.0
+            continue
         tmp = f"{path}.tmp{os.getpid()}"
         cmd = [_nvcc(), *_BASE_FLAGS, *flags, "-o", tmp, os.path.join(CSRC_DIR, src)]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.STDOUT, text=True),
-                       tmp, path, time.perf_counter())
+        procs[src] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                       stderr=subprocess.STDOUT, text=True),
+                      tmp, path, time.perf_counter())
     errors = []
-    for name, (proc, tmp, path, t0) in procs.items():
+    for src, (proc, tmp, path, t0) in procs.items():
         out, _ = proc.communicate()
-        seconds[name] = time.perf_counter() - t0
+        seconds[src] = time.perf_counter() - t0
         if proc.returncode != 0:
-            errors.append(f"nvcc failed for {name}:\n{out}")
+            errors.append(f"nvcc failed for {src}:\n{out}")
         else:
             os.replace(tmp, path)
     if errors:

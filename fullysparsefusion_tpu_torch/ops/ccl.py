@@ -14,9 +14,6 @@ import torch
 
 from .. import kernels
 
-# the kernel keeps parent[N] in a block's shared memory
-CCL_MAX_N = 8192
-
 
 def ccl_roots_plain(xy: torch.Tensor, batch: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     """Plain version of :func:`ccl_roots`: dense [G, N, N] adjacency, then
@@ -52,7 +49,10 @@ def ccl_roots(xy: torch.Tensor, batch: torch.Tensor, valid: torch.Tensor) -> tor
     loops), or -1 for an invalid node → [G, N] i32.
 
     xy [G, N, 2] f32 (pre-scaled so the threshold is 1), batch [G, N] i32
-    (≥ 0), valid [G, N] bool.
+    (≥ 0), valid [G, N] bool. On a CUDA tensor the kernel takes any N whose
+    adjacency bitmask, ``G · N² / 8`` bytes of scratch, fits on the card
+    (the union-find keeps ``parent[N]`` in shared memory up to ~46k nodes
+    on an H100 and in a ``G · N`` i32 scratch beyond).
     """
     if xy.dtype != torch.float32 or batch.dtype != torch.int32 or valid.dtype != torch.bool:
         raise TypeError("ccl_roots takes f32 xy, int32 batch, bool valid")
@@ -64,16 +64,17 @@ def ccl_roots(xy: torch.Tensor, batch: torch.Tensor, valid: torch.Tensor) -> tor
     if xy.device.type != "cuda" or batch.device != xy.device or valid.device != xy.device:
         raise ValueError("ccl_roots: all tensors on one CUDA device (or the CPU)")
     g, n = valid.shape
-    if n > CCL_MAX_N:
-        raise ValueError(f"ccl_roots kernel takes N <= {CCL_MAX_N}, got {n}")
     if not (xy.is_contiguous() and batch.is_contiguous() and valid.is_contiguous()):
         raise ValueError("ccl_roots: inputs must be contiguous")
     # scratch of the adjacency pass: bits[g, i, w], bit b set iff 32 w + b > i
     # is adjacent to i
     bits = torch.empty(g, n, (n + 31) // 32, dtype=torch.int32, device=xy.device)
+    # union-find's parent[] where it does not fit in shared memory; apart from
+    # roots, so that only a node's own thread writes its root
+    parent = torch.empty(g, n, dtype=torch.int32, device=xy.device)
     roots = torch.empty(g, n, dtype=torch.int32, device=xy.device)
     kernels.launch("ccl", xy.data_ptr(), batch.data_ptr(), valid.data_ptr(), g, n,
-                   bits.data_ptr(), roots.data_ptr(),
+                   bits.data_ptr(), parent.data_ptr(), roots.data_ptr(),
                    torch.cuda.current_stream(xy.device).cuda_stream)
     ccl_roots.launches += 1
     return roots

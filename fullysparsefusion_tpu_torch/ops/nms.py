@@ -14,10 +14,6 @@ from .. import kernels
 from .geometry import boxes_iou_bev
 
 
-# the scan keeps two blocks of 64 mask rows in a block's shared memory
-NMS_MAX_N = 14336
-
-
 def nms_keep_plain(iou: torch.Tensor, order: torch.Tensor, valid_sorted: torch.Tensor,
                    iou_thr: float) -> torch.Tensor:
     """Plain version of :func:`nms_keep`: the greedy scan row by row, all
@@ -41,7 +37,9 @@ def nms_keep(iou: torch.Tensor, order: torch.Tensor, valid_sorted: torch.Tensor,
     iou [N, N] f32 in the boxes' original order; order [C, N] i32 — each
     class's descending-score order; valid_sorted [C, N] bool in that order.
     Row i of class c is kept iff it is valid and no earlier kept row of c
-    has IoU > ``iou_thr`` with it. The kernel takes N ≤ ``NMS_MAX_N``.
+    has IoU > ``iou_thr`` with it. On a CUDA tensor the kernel takes any N
+    whose scratch fits on the card: its bitmask is ``C · N² / 8`` bytes
+    (295 MB at C = 10, N = 15,360), beside the caller's ``4 · N²`` of IoU.
     """
     n = iou.shape[0]
     if iou.dtype != torch.float32 or order.dtype != torch.int32 or valid_sorted.dtype != torch.bool:
@@ -55,8 +53,6 @@ def nms_keep(iou: torch.Tensor, order: torch.Tensor, valid_sorted: torch.Tensor,
         raise ValueError("nms_keep: all tensors on one CUDA device (or the CPU)")
     if not (iou.is_contiguous() and order.is_contiguous() and valid_sorted.is_contiguous()):
         raise ValueError("nms_keep: inputs must be contiguous")
-    if n > NMS_MAX_N:
-        raise ValueError(f"nms_keep kernel takes N <= {NMS_MAX_N}, got {n}")
     c = order.shape[0]
     words = (n + 63) // 64
     # scratch of the bitmask pass: mask[c, i, w], 64 later rows per word

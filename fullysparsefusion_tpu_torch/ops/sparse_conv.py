@@ -172,6 +172,93 @@ def dw_per_tap_plain(feats: torch.Tensor, rows: torch.Tensor, g: torch.Tensor) -
     return torch.stack([f_z[rows[k].long()].T @ gf for k in range(rows.shape[0])])
 
 
+# the dw kernel's block: 128 Cin (two warpgroups) x dw_tile_n(cout) Cout of one tap
+DW_TILE_M = 128
+
+
+def dw_tile_n(cout: int) -> int:
+    """Cout tile of the dw kernel's block: the narrowest of 64 / 128 / 256
+    that covers Cout (256 past it)."""
+    return 256 if cout > 128 else (128 if cout > 64 else 64)
+
+
+def dw_chunk_slots(cin: int, cout: int, sms: int, k3: int) -> int:
+    """Chunk slots of the dw kernel's grid: as many blocks as fit on the
+    card at once (two an SM at a Cout tile of 64 or 128, one at 256, as the
+    kernel's ``Ring<BN>::BLOCKS_PER_SM`` sizes its shared memory) for every
+    (Cin tile, Cout tile) block of a chunk, so the chunks run in one wave;
+    at least one slot per tap."""
+    bn = dw_tile_n(cout)
+    blocks = -(-cin // DW_TILE_M) * -(-cout // bn)
+    return max(k3, sms * (2 if bn <= 128 else 1) // blocks)
+
+
+class DwWork(NamedTuple):
+    """The dw kernel's work list: views of one int32 buffer, in the layout
+    of ``csrc/gather_conv_dw.cu``'s ``WorkList``."""
+
+    tile_mask: torch.Tensor   # [tiles]: OR of the masks of each TILE_ROWS rows of order
+    tap_tiles: torch.Tensor   # [K³]: hit tiles of each tap
+    tiles: torch.Tensor       # [K³·tiles]: tap 0's hit tiles ascending, then tap 1's, …; -1 after
+    chunks: torch.Tensor      # [n_chunks, 3]: (tap, first position in tiles, tiles); 0s past the end
+    tap_chunks: torch.Tensor  # [K³, 2]: each tap's first chunk and its number of chunks
+    buf: torch.Tensor         # the int32 buffer that the fields above view, in that order
+
+
+def dw_work_list(plan: ConvPlan, k3: int, n_chunks: int) -> DwWork:
+    """For each tap, the tiles of ``TILE_ROWS`` rows of ``plan.order`` in
+    which some row hits it (by the OR of the tile's masks), cut into chunks
+    of ``per`` tiles (a tap's last chunk shorter), ``per`` the least length
+    that keeps the chunks within ``n_chunks`` (≥ K³) slots. On a CUDA plan
+    this launches the dw kernel's list kernels; on a CPU plan it is torch
+    glue, their plain version. Nothing is read back to the host."""
+    dev = plan.order.device
+    n_out = plan.order.shape[0]
+    n_tiles = -(-n_out // TILE_ROWS)
+    if not 1 <= k3 <= 31 or n_chunks < k3:
+        raise ValueError(f"dw_work_list: 1 <= K3 <= 31 and n_chunks >= K3, got {k3}, {n_chunks}")
+    sizes = (n_tiles, k3, k3 * n_tiles, 3 * n_chunks, 2 * k3)
+    buf = torch.empty(sum(sizes), dtype=torch.int32, device=dev)
+    t_mask, t_tiles, t_list, t_chunks, t_tap_chunks = torch.split(buf, sizes)
+    work = DwWork(t_mask, t_tiles, t_list, t_chunks.view(n_chunks, 3), t_tap_chunks.view(k3, 2),
+                  buf)
+    if dev.type == "cuda":
+        kernels.launch("gather_conv_dw_list", plan.masks.data_ptr(), plan.order.data_ptr(),
+                       n_out, k3, n_chunks, buf.data_ptr(),
+                       torch.cuda.current_stream(dev).cuda_stream)
+        return work
+    m = F.pad(plan.masks[plan.order.long()], (0, n_tiles * TILE_ROWS - n_out))
+    m = m.view(n_tiles, TILE_ROWS)
+    while m.shape[1] > 1:                           # OR over each tile, by halves
+        h = m.shape[1] // 2
+        m = m[:, :h] | m[:, h:]
+    work.tile_mask.copy_(m[:, 0])
+    taps = torch.arange(k3, device=dev, dtype=torch.int32)
+    hit = ((work.tile_mask[None, :] >> taps[:, None]) & 1).bool()    # [K³, tiles]
+    cnt = hit.sum(1)
+    work.tap_tiles.copy_(cnt)
+    flat = hit.flatten()
+    slot = torch.where(flat, torch.cumsum(flat, 0) - 1, flat.numel())  # misses: a spare slot
+    ids = torch.arange(n_tiles, device=dev, dtype=torch.int32).repeat(k3)
+    tiles = torch.full((flat.numel() + 1,), -1, dtype=torch.int32, device=dev)
+    work.tiles.copy_(tiles.scatter_(0, slot, ids)[:-1])
+    # the least per in [1, tiles + 1] whose chunks fit the slots
+    pers = torch.arange(1, n_tiles + 2, device=dev)
+    need = ((cnt[None, :] + pers[:, None] - 1) // pers[:, None]).sum(1)
+    per = pers[torch.argmax((need <= n_chunks).int())]
+    n_ck = (cnt + per - 1) // per
+    ends = torch.cumsum(n_ck, 0)
+    first = ends - n_ck
+    j = torch.arange(n_chunks, device=dev)
+    tap = torch.searchsorted(ends, j, right=True).clamp(max=k3 - 1)
+    c = j - first[tap]
+    rows = torch.stack([tap, (torch.cumsum(cnt, 0) - cnt)[tap] + c * per,
+                        torch.minimum(per, cnt[tap] - c * per)], 1)
+    work.chunks.copy_(torch.where((j < ends[-1])[:, None], rows, 0))
+    work.tap_chunks.copy_(torch.stack([first, n_ck], 1))
+    return work
+
+
 def dw_per_tap(feats: torch.Tensor, rows: torch.Tensor, g: torch.Tensor,
                plan: Optional[ConvPlan] = None) -> torch.Tensor:
     """Weight gradient of a gather conv: ``d_w[k] = Σ_r feats_z[rows[k, r]]ᵀ ⊗
@@ -181,8 +268,11 @@ def dw_per_tap(feats: torch.Tensor, rows: torch.Tensor, g: torch.Tensor,
     forward's rulebook, miss → n_src), g [n_out, Cout] bf16 (the output's
     gradient, masked by validity); ``plan`` is the forward rulebook's
     ``plan_rulebook(rows, n_src)``, made here when not given. On a CUDA
-    tensor this launches the ``gather_conv_dw`` kernel (Cin and Cout
-    multiples of 8, contiguous inputs); on a CPU tensor it runs
+    tensor this launches the ``gather_conv_dw`` kernels (the work list of
+    :func:`dw_work_list`, the product, the chunks' sum; Cin and Cout
+    multiples of 8, contiguous inputs) with a scratch of
+    ``dw_chunk_slots(…) · Cin · Cout`` f32 for the chunks' partial sums
+    (17.3 MB at 128 × 128 on an H100); on a CPU tensor it runs
     :func:`dw_per_tap_plain`."""
     if feats.dtype != torch.bfloat16 or g.dtype != torch.bfloat16:
         raise TypeError("dw_per_tap takes bf16 feats and g")
@@ -209,33 +299,23 @@ def dw_per_tap(feats: torch.Tensor, rows: torch.Tensor, g: torch.Tensor,
         if t.dtype != torch.int32 or t.shape != (n_out,) or t.device != feats.device \
                 or not t.is_contiguous():
             raise ValueError("dw_per_tap: plan masks and order must be int32 [n_out] on the device")
+    if not 1 <= k3 <= 31:
+        raise ValueError(f"dw_per_tap kernel takes 1 <= K3 <= 31 taps, got {k3}")
+    sms = torch.cuda.get_device_properties(feats.device).multi_processor_count
+    n_chunks = dw_chunk_slots(cin, cout, sms, k3)
+    work = dw_work_list(plan, k3, n_chunks)
+    part = torch.empty(n_chunks, cin, cout, dtype=torch.float32, device=feats.device)
     out = torch.empty(k3, cin, cout, dtype=torch.float32, device=feats.device)
-    splits = dw_splits(n_out, k3, cin, cout)
-    scratch = (torch.empty(splits, k3, cin, cout, dtype=torch.float32, device=feats.device)
-               if splits > 1 else out)
     kernels.launch(
         "gather_conv_dw", feats.data_ptr(), n_src, cin, rows.data_ptr(), n_out, k3,
-        g.data_ptr(), cout, plan.order.data_ptr(), plan.masks.data_ptr(), splits,
-        scratch.data_ptr(), out.data_ptr(), torch.cuda.current_stream(feats.device).cuda_stream)
+        g.data_ptr(), cout, plan.order.data_ptr(), n_chunks, dw_tile_n(cout),
+        work.buf.data_ptr(), part.data_ptr(), out.data_ptr(),
+        torch.cuda.current_stream(feats.device).cuda_stream)
     dw_per_tap.launches += 1
     return out
 
 
 dw_per_tap.launches = 0
-
-# the dw kernel's block: 64 Cin x 64 Cout of one tap
-DW_TILE = 64
-# blocks the dw grid aims at: about four per SM of an H100 (132 SMs)
-DW_TARGET_BLOCKS = 4 * 132
-
-
-def dw_splits(n_out: int, k3: int, cin: int, cout: int) -> int:
-    """Row splits of the dw kernel's grid: enough (tap, Cin tile, Cout tile,
-    split) blocks to fill the card, each split at least 8 row tiles long.
-    The splits' partial sums are added in a fixed order by a second pass."""
-    blocks = k3 * -(-cin // DW_TILE) * -(-cout // DW_TILE)
-    row_tiles = -(-n_out // TILE_ROWS)
-    return max(1, min(-(-DW_TARGET_BLOCKS // blocks), row_tiles // 8))
 
 
 # ---------------------------------------------------------------------------

@@ -301,6 +301,41 @@ def ccl_problem_arrays(case: str, g: int, n: int, seed: int = 0):
     return xy, batch, valid
 
 
+def ccl_known_components(n: int, seed: int = 0, chain: int = 100, stack: int = 50):
+    """(xy [1, n, 2] f32, batch [1, n] i32, valid [1, n] bool, roots [1, n]
+    i32): one CCL problem (units of ``ops.ccl``) whose components are known
+    by construction, for N past what the plain version's [N, N] distances
+    allow. Nine in ten nodes form, in turn, chains of ``chain`` nodes 0.9
+    apart along x (only neighbours join) and stacks of ``stack`` coincident
+    points (complete graphs), each structure on its own line 3 apart in y;
+    the rest are invalid nodes at random places. Indices are shuffled, so a
+    component's minimum lies anywhere in it. ``roots`` is each valid node's
+    component minimum, -1 for an invalid node."""
+    rng = np.random.default_rng(seed)
+    n_valid = n - n // 10
+    comp = np.empty(n_valid, np.int64)
+    pos = np.zeros((n_valid, 2), np.float32)
+    k = c = 0
+    while k < n_valid:
+        size = min(chain if c % 2 == 0 else stack, n_valid - k)
+        comp[k:k + size] = c
+        if c % 2 == 0:
+            pos[k:k + size, 0] = np.arange(size, dtype=np.float32) * np.float32(0.9)
+        pos[k:k + size, 1] = np.float32(3.0 * c)
+        k += size
+        c += 1
+    node = rng.permutation(n)                 # slot i of the layout is node node[i]
+    xy = rng.uniform(-50.0, 0.0, (n, 2)).astype(np.float32)
+    valid = np.zeros(n, bool)
+    xy[node[:n_valid]] = pos
+    valid[node[:n_valid]] = True
+    first = np.full(c, n, np.int64)
+    np.minimum.at(first, comp, node[:n_valid])
+    roots = np.full(n, -1, np.int32)
+    roots[node[:n_valid]] = first[comp]
+    return xy[None], np.zeros((1, n), np.int32), valid[None], roots[None]
+
+
 def to_point_batch(arrays: Dict[str, np.ndarray], device="cuda") -> PointBatch:
     return PointBatch(
         points=torch.as_tensor(arrays["points"], device=device),

@@ -13,7 +13,8 @@ Tolerances: K1 takes bf16 operands whose products are exact in f32, so the
 kernel and the plain version differ only in the order of the f32 sums: 1e-4
 of the output's magnitude. ``dw_per_tap`` likewise sums exact bf16 products
 in f32, over up to n_out rows: 1e-4 of each tap's ``||d_w[k]||`` (and exactly
-0 for a tap nothing hits). K2 and K3 are bitwise.
+0 for a tap nothing hits). K2 and K3 are bitwise, also past the sizes where
+their scratch leaves shared memory (K3 at N = 15,360, K2 at 50,000).
 """
 import numpy as np
 import pytest
@@ -21,7 +22,7 @@ import torch
 
 from fullysparsefusion_tpu_torch.models.sparse_unet import SubmRulebook
 from fullysparsefusion_tpu_torch.ops import ccl, geometry, nms, sparse_conv
-from fullysparsefusion_tpu_torch.synthetic import ccl_problem_arrays
+from fullysparsefusion_tpu_torch.synthetic import ccl_known_components, ccl_problem_arrays
 
 
 @pytest.fixture
@@ -74,13 +75,17 @@ def _adversarial_rulebook(case, g):
         rows[tap, torch.arange(n_out)] = hit
     elif case == "padding_tiles":
         rows[:, 100:500] = n_src                   # 400 rows with no hit: 3 all-miss tiles
+    elif case == "hits_in_one_tile":               # 100 rows hit: one tile of the sorted order
+        keep = rows[:, 200:300].clone()
+        rows[:] = n_src
+        rows[:, 200:300] = keep
     w = (torch.randn(27, cin, cout, generator=g) / (27 * cin) ** 0.5).to(torch.bfloat16)
     return feats, rows, w
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("case", ["every_slot_misses", "one_hit_per_row", "padding_tiles",
-                                  "cin16_cout48"])
+                                  "hits_in_one_tile", "cin16_cout48"])
 def test_gather_conv_kernel_adversarial_rulebooks(cuda, case):
     """n_out = 1000 is off the 128-row tile in every case; two runs are
     bitwise equal, with the plan given or made by the wrapper."""
@@ -107,12 +112,13 @@ def _dw_close(got, ref):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("case", ["random", "every_slot_misses", "one_hit_per_row",
-                                  "padding_tiles", "cin16_cout48"])
+                                  "padding_tiles", "hits_in_one_tile", "cin16_cout48"])
 @pytest.mark.parametrize("n_out", [1000, 20000 - 77])
 def test_dw_per_tap_kernel_matches_plain(cuda, case, n_out):
-    """The adversarial rulebooks of K1, at one row split (1,000 rows) and at
-    several (19,923 rows: partial sums added by the second pass); g stands
-    for the output gradient. Two runs are bitwise equal."""
+    """The adversarial rulebooks of K1, at 1,000 rows (a tap's list is one
+    chunk of a few tiles) and at 19,923 (many chunks per tap, added by the
+    second pass); g stands for the output gradient. Two runs are bitwise
+    equal."""
     gen = torch.Generator().manual_seed(2)
     feats, rows, _ = _adversarial_rulebook(case, gen)
     if n_out > rows.shape[1]:
@@ -128,6 +134,23 @@ def test_dw_per_tap_kernel_matches_plain(cuda, case, n_out):
     _dw_close(got, ref)
     if case == "every_slot_misses":
         assert not got.any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_chunks", [27, 66, 132])
+@pytest.mark.parametrize("case", ["random", "every_slot_misses", "one_hit_per_row",
+                                  "padding_tiles", "hits_in_one_tile"])
+def test_dw_work_list_kernel_matches_plain(cuda, case, n_chunks):
+    """The list kernels against the torch glue on the CPU, every field
+    bitwise, at 1,000 and at 19,923 rows."""
+    _, rows, _ = _adversarial_rulebook(case, torch.Generator().manual_seed(4))
+    for r in (rows, rows.repeat(1, 20)[:, :20000 - 77].contiguous()):
+        plan = sparse_conv.plan_rulebook(r, 700)
+        got = sparse_conv.dw_work_list(sparse_conv.ConvPlan(*(a.to(cuda) for a in plan)), 27,
+                                       n_chunks)
+        ref = sparse_conv.dw_work_list(plan, 27, n_chunks)
+        for name, a, b in zip(ref._fields, got, ref):
+            assert torch.equal(a.cpu(), b), name
 
 
 @pytest.mark.gpu
@@ -254,6 +277,33 @@ def _boxes(rng, n, extent=6.0):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("n,g", [(12000, 1), (9000, 3)])
+def test_ccl_kernel_past_8192_matches_plain(cuda, n, g):
+    """Past the old 8,192-node cap: the union-find's parent[] in opted-in
+    shared memory (N = 9,000 and 12,000 need more than 48 KB)."""
+    args = [t(a).to(cuda) for a in ccl_problem_arrays("random", g, n)]
+    got = ccl.ccl_roots(*args)
+    assert torch.equal(got, ccl.ccl_roots(*args))
+    assert torch.equal(got.cpu(), ccl.ccl_roots_plain(*args).cpu())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,chain", [(40000, 100), (50000, 100), (50000, 45000)])
+def test_ccl_kernel_known_components(cuda, n, chain):
+    """Chains and coincident stacks with shuffled indices, components known
+    by construction: at 40,000 nodes parent[] is in shared memory, at 50,000
+    (past the opt-in limit) in device memory; chain=45,000 is one chain of
+    diameter 45,000. Twenty runs each, since the union-find's hooks and path
+    halving interleave differently each run."""
+    xy, batch, valid, roots = ccl_known_components(n, seed=n, chain=chain)
+    args = [t(a).to(cuda) for a in (xy, batch, valid)]
+    want = t(roots).to(cuda)
+    for run in range(20):
+        got = ccl.ccl_roots(*args)
+        assert torch.equal(got, want), f"run {run}: {int((got != want).sum())} nodes off"
+
+
+@pytest.mark.gpu
 def test_nms_kernel_matches_plain(cuda):
     rng = np.random.default_rng(0)
     n, c = 1280, 10
@@ -289,3 +339,22 @@ def test_nms_kernel_edge_cases(cuda, n, c, ties, invalid_classes):
         assert got.dtype == torch.bool
         assert torch.equal(got.cpu(), nms.nms_keep_plain(iou, order, vs, thr).cpu())
         assert not got[list(invalid_classes)].any()
+
+
+@pytest.mark.gpu
+def test_nms_kernel_past_the_shared_memory_limit(cuda):
+    """N = 15,360 (a batch of 12 x 1,280 queries): two 64-row mask blocks no
+    longer fit in shared memory, so the scan reads them from device memory.
+    IoU only within each sample's 1,280 rows, as the batched NMS gives it."""
+    n, c = 15360, 3
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    m = torch.rand(n, n, generator=gen, device=cuda)
+    same = (torch.arange(n, device=cuda)[:, None] // 1280) == (torch.arange(n, device=cuda) // 1280)
+    iou = torch.where(same, torch.round((m + m.T) * 4) / 8, 0.0)
+    iou.fill_diagonal_(1.0)
+    scores = torch.rand(c, n, generator=gen, device=cuda)
+    valid = torch.rand(c, n, generator=gen, device=cuda) > 0.3
+    order, vs = nms.class_orders(scores, valid)
+    got = nms.nms_keep(iou, order, vs.contiguous(), 0.5)
+    assert torch.equal(got, nms.nms_keep_plain(iou, order, vs, 0.5))
+    assert 0 < int(got.sum()) < int(vs.sum())

@@ -10,10 +10,14 @@ then takes the K2 call of one bench-scale request of ``chip_smoke.py``
 (full-width FSF, random weights, scene seed 0) and the problems of
 ``chip_smoke.CCL_ADVERSARIAL``. On each, both kernels must equal this
 checkout's plain version bitwise, and each is timed by ``chip_smoke.time_ms``
-(CUDA-graph replay of 20 calls) in the order other, this, this, other; then
+(CUDA-graph replay of 20 calls) in the order other, this, this, other (the
+other only where it takes the problem's N); then
 ``torch.profiler`` gives the mean device time of each kernel that each
 checkout launches (over 10 eager calls; a launch the profiler drops does not
-bias the mean).
+bias the mean). Last, each of ``chip_smoke.CCL_KNOWN_CASES`` (50,000 nodes,
+``parent[]`` past shared memory) runs ``KNOWN_RUNS`` times on each side
+against its known components: a race in the union-find shows as runs with
+wrong roots, which are counted for the other checkout and fail this one.
 
 Prints one JSON object per problem, then the card's name and power limit;
 exits non-zero without a CUDA device or on a mismatch.
@@ -34,6 +38,8 @@ from collections import defaultdict
 import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+KNOWN_RUNS = 50
 
 
 def load_other_package(root: str, name: str = "fsf_other"):
@@ -102,15 +108,37 @@ def main() -> int:
         row = {"problem": name, "G": valid.shape[0], "N": valid.shape[1],
                "valid_nodes": int(valid.sum()), "plain_sweeps": ccl.ccl_roots_plain.sweeps,
                "other_ms": [], "this_ms": []}
-        for key, mod in (("other_ms", other), ("this_ms", ccl), ("this_ms", ccl),
-                         ("other_ms", other)):
+        mods = (("other", other), ("this", ccl), ("this", ccl), ("other", other))
+        try:
+            other.ccl_roots(xy, batch, valid)
+        except ValueError as e:                # an older checkout's size cap
+            row["other_refused"] = str(e)
+            mods = mods[1:3]
+        for key, mod in mods:
             if not torch.equal(mod.ccl_roots(xy, batch, valid), ref):
-                raise SystemExit(f"time_ccl_roots: {key[:-3]} kernel differs on {name}")
-            row[key].append(chip_smoke.time_ms(
+                raise SystemExit(f"time_ccl_roots: {key} kernel differs on {name}")
+            row[f"{key}_ms"].append(chip_smoke.time_ms(
                 functools.partial(mod.ccl_roots, xy, batch, valid), 20))
-        for key, mod in (("other_kernels", other), ("this_kernels", ccl)):
-            row[key] = kernel_split(functools.partial(mod.ccl_roots, xy, batch, valid))
+        for key, mod in dict(mods).items():
+            row[f"{key}_kernels"] = kernel_split(functools.partial(mod.ccl_roots, xy, batch, valid))
         print(json.dumps(row), flush=True)
+    n = chip_smoke.CCL_KNOWN_N
+    for chain, _ in chip_smoke.CCL_KNOWN_CASES:
+        xy, batch, valid, roots = (torch.as_tensor(a, device="cuda")
+                                   for a in S.ccl_known_components(n, chain=chain))
+        row = {"problem": f"known_components_chain{chain}_g1_n{n}", "runs": KNOWN_RUNS}
+        for key, mod in (("other", other), ("this", ccl)):
+            try:
+                wrong = [int((mod.ccl_roots(xy, batch, valid) != roots).sum())
+                         for _ in range(KNOWN_RUNS)]
+            except ValueError as e:            # an older checkout's size cap
+                row[f"{key}_refused"] = str(e)
+                continue
+            row[f"{key}_wrong_runs"] = sum(w > 0 for w in wrong)
+            row[f"{key}_most_wrong_nodes"] = max(wrong)
+        print(json.dumps(row), flush=True)
+        if row["this_wrong_runs"]:
+            raise SystemExit(f"time_ccl_roots: this kernel misses the known components of {row}")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True, check=True)
     print(smi.stdout.strip().splitlines()[0])
