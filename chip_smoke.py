@@ -43,6 +43,23 @@ Phases, each of which ends the script with a non-zero exit on failure:
    from the same weights: with eval-form BN the losses and the gradient tree
    must agree, with train-form BN the losses (``small_train_reference_check``
    says why).
+6. ddp_world1: at full width, from the train phase's state, ``train_step``
+   twice (whether the card's step reproduces) and ``sharded_train_step``
+   under an NCCL group of world size 1 (``file://`` rendezvous), its losses
+   held to ``train_step``'s; then timed sharded steps (the gradient
+   all-reduce of the 303.8 MB of f32 gradients by CUDA events) with the
+   kernels' launches counted (zeroed just before, read just after);
+7. ddp_two_ranks: the tiny config on two processes on the one card, joined
+   by gloo on CUDA tensors (NCCL takes one rank per card), against one
+   process at batch 2 with doubled capacities, for eval-form BN, the
+   segmentor-pretrain phase and train-form BN (what each holds:
+   ``ddp_two_ranks``); both ranks' gradients and BN buffers bitwise equal,
+   K1, K2 and ``dw_per_tap`` launched on each rank; then sharded eval
+   (``get_bboxes`` on each rank's shard of six scenes, the records
+   all-gathered) whose mAP must equal one process's;
+8. train_to_map: the tiny config overfits one scene in 60 AdamW steps and
+   its mAP through ``get_bboxes`` (K3) and ``evaluate_detections`` must
+   rise past ``tests/test_train_to_map.py``'s thresholds.
 
 The last lines are a ``{"kernels": [...]}`` JSON object, the card's name and
 power limit from ``nvidia-smi``, and ``{"ok": true, "device": {...}}``.
@@ -56,10 +73,13 @@ import dataclasses
 import functools
 import json
 import math
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
+import numpy as np
 import torch
 
 # H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, f32 outside
@@ -176,6 +196,23 @@ def capture_results(module, name: str, sink: list):
         yield
     finally:
         setattr(module, name, orig)
+
+
+def kernel_wrappers() -> dict:
+    """Each kernel's wrapper, which counts its launches in ``.launches``."""
+    from fullysparsefusion_tpu_torch.ops import ccl, nms, sparse_conv
+
+    return {"gather_conv": sparse_conv.gather_conv, "ccl_roots": ccl.ccl_roots,
+            "nms_keep": nms.nms_keep, "dw_per_tap": sparse_conv.dw_per_tap}
+
+
+def counts(wrappers) -> dict:
+    return {name: fn.launches for name, fn in wrappers.items()}
+
+
+def zero(wrappers) -> None:
+    for fn in wrappers.values():
+        fn.launches = 0
 
 
 def build_kernels():
@@ -646,8 +683,7 @@ def train(model, opt, batch, wrappers):
         train_step(model, opt, sched, batch, step)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for fn in wrappers.values():
-        fn.launches = 0
+    zero(wrappers)
     plans0 = sparse_conv.plan_rulebook.calls
     totals, split = [], {"forward_ms": [], "backward_ms": [], "optimizer_ms": []}
     k1 = {"forward": [], "backward": []}
@@ -680,7 +716,7 @@ def train(model, opt, batch, wrappers):
              "gpu_ms": round(events["start"].elapsed_time(events["optimizer"]), 3),
              "host_ms": round(host_ms, 3), **{k: round(v, 3) for k, v in phases.items()},
              "losses": losses})
-    launches = {name: fn.launches for name, fn in wrappers.items()}
+    launches = counts(wrappers)
     if not totals[-1] < totals[0]:
         fail(f"the summed loss did not fall over the timed steps: {totals}")
     for name in MUST_TRAIN:
@@ -850,6 +886,372 @@ def adversarial_dw_per_tap(shapes=((16, 16), (64, 48), (128, 256), (512, 512))):
          "max_abs_err": errs})
 
 
+# -- data parallel, sharded eval, train to mAP ---------------------------------
+
+# the train-form tolerance of small_train_reference_check: sharded_train_step
+# at world size 1 against train_step, per loss relative to max(1, |loss|)
+DDP_WORLD1_TOL = TRAIN_LOSS_TOL
+DDP_WORLD1_STEPS = 3
+# two ranks x batch 1 against one process at batch 2: tests/test_train.py's
+# DDP-equivalence tolerances (total loss, segmentor terms, gradient norm per
+# leaf and in total, counts times 2 and loss terms)
+DDP_TOTAL_RTOL, DDP_TIGHT_RTOL, DDP_LEAF_RTOL, DDP_NORM_RTOL = 5e-3, 1e-3, 1.5e-1, 2e-2
+DDP_COUNT_RTOL, DDP_TERM_RTOL = 5e-2, 1e-2
+# eval-form BN: the forward is the one process's row for row, so only the
+# order of f32 sums (atomics on the card) separates the two: losses and the
+# gradient's norm within DDP_EXACT_RTOL, each gradient (relative L2) within
+# DDP_EXACT_LEAF_RTOL (the VFE's first layer sums over every point: 2e-4
+# apart on the card)
+DDP_EXACT_RTOL = 1e-4
+DDP_EXACT_LEAF_RTOL = 1e-3
+DDP_SEEDS = (100, 101)
+# (detection weight, train-form BN); what each case holds is in ddp_two_ranks
+DDP_CASES = {"eval_bn": (1.0, False), "segmentor_pretrain": (0.0, True),
+             "train_bn": (1.0, True)}
+EVAL_SCENES, EVAL_SEED0 = 6, 300
+# tests/test_train_to_map.py's recipe and thresholds
+T2M_STEPS, T2M_LR, T2M_SEED, T2M_CLASSES, T2M_BATCH = 60, 1e-3, 7, 3, 2
+
+
+def ddp_world1(model, opt, batch, wrappers, step: int, workdir: str) -> dict:
+    """Full width: ``train_step`` twice from one state (the card's step
+    reproduced or not), then ``sharded_train_step`` under an NCCL group of
+    world size 1 from the same state, its losses held to ``train_step``'s;
+    then ``DDP_WORLD1_STEPS`` timed sharded steps (the gradient all-reduce
+    by CUDA events) with the kernels' launches counted, and one bare NCCL
+    all-reduce of the gradients' bytes. Returns the launches per step."""
+    import torch.distributed as dist
+    from fullysparsefusion_tpu_torch.parallel.launch import init_group
+    from fullysparsefusion_tpu_torch.parallel.train import sharded_train_step, train_step
+    from fullysparsefusion_tpu_torch.train.hooks import RuntimeSchedule
+
+    t0 = time.perf_counter()
+    sched = RuntimeSchedule()
+    saved = copy.deepcopy(model.state_dict()), copy.deepcopy(opt.state_dict())
+
+    def run(step_fn, *args):
+        model.load_state_dict(saved[0])
+        opt.load_state_dict(copy.deepcopy(saved[1]))     # it would alias the saved tensors
+        _, losses, _ = step_fn(model, opt, sched, batch, step, *args)
+        return ({k: float(v) for k, v in losses.items()},
+                [p.detach().clone() for p in model.parameters()])
+
+    def diff(a, b):
+        return (max(abs(a[0][k] - b[0][k]) / max(1.0, abs(a[0][k])) for k in a[0]),
+                max(float((x - y).abs().max()) for x, y in zip(a[1], b[1])))
+
+    first, again = run(train_step), run(train_step)
+    group = init_group(0, 1, os.path.join(workdir, "nccl_world1"), backend="nccl",
+                       device="cuda")
+    sharded = run(sharded_train_step, group)
+    loss_err, param_err = diff(first, sharded)
+    if loss_err > DDP_WORLD1_TOL:
+        fail(f"ddp_world1: sharded_train_step's losses differ from train_step's by "
+             f"{loss_err:.3g} (tolerance {DDP_WORLD1_TOL})")
+    spread = diff(first, again)
+    del again, sharded
+
+    zero(wrappers)
+    split = {"forward_ms": [], "backward_ms": [], "allreduce_ms": [], "optimizer_ms": []}
+    for s in range(step + 1, step + 1 + DDP_WORLD1_STEPS):
+        events = {ph: torch.cuda.Event(enable_timing=True)
+                  for ph in ("start", "forward", "backward", "allreduce", "optimizer")}
+        events["start"].record()
+        loss, _, _ = sharded_train_step(model, opt, sched, batch, s, group,
+                                        lambda phase: events[phase].record())
+        torch.cuda.synchronize()
+        if not math.isfinite(float(loss)):
+            fail(f"ddp_world1: non-finite loss at step {s}")
+        names = list(events)
+        for a, b in zip(names, names[1:]):
+            split[f"{b}_ms"].append(events[a].elapsed_time(events[b]))
+    launches = counts(wrappers)
+    for name in ("gather_conv", "dw_per_tap", "ccl_roots"):
+        if launches[name] <= 0:
+            fail(f"kernel {name} was not launched on the sharded train path")
+    n = sum(p.numel() for p in model.parameters())
+    flat = torch.zeros(n, device="cuda")
+    bare_ms = eager_ms(lambda: dist.all_reduce(flat, group=group), 5)
+    dist.destroy_process_group()
+    per_step = {k: v / DDP_WORLD1_STEPS for k, v in launches.items()}
+    log({"phase": "ddp_world1", "backend": "nccl", "world_size": 1,
+         "loss_rel_err_vs_train_step": float(f"{loss_err:.3g}"),
+         "tolerance": DDP_WORLD1_TOL,
+         "param_max_abs_diff_vs_train_step": param_err,
+         "train_step_rerun_spread": {"loss_rel": spread[0], "param_max_abs": spread[1]},
+         "steps": DDP_WORLD1_STEPS,
+         "mean_ms": {k: round(sum(v) / len(v), 3) for k, v in split.items()},
+         "allreduce_ms_per_step": [round(v, 3) for v in split["allreduce_ms"]],
+         "grad_bytes": 4 * n, "bare_allreduce_ms": round(bare_ms, 4),
+         "launches_per_step": per_step,
+         "seconds": round(time.perf_counter() - t0, 3)})
+    return per_step
+
+
+def ddp_config(scale: int = 1):
+    """The tiny FSF config with every UNet conv on the gather path and
+    capacities ample for one scene, times ``scale`` (per global batch):
+    tests/test_torch_ddp_port.py's ``rank_config``."""
+    from fullysparsefusion_tpu_torch.config import tiny_fsf_config
+
+    cfg = gather_only(tiny_fsf_config())
+    c = cfg.caps
+    caps = dataclasses.replace(
+        c, points=512 * scale, voxels=c.voxels * scale, prevox=c.prevox * scale,
+        fg_per_group=1024 * scale, cluster_voxels_per_group=1024 * scale,
+        clusters=512 * scale, frustum_points=1024 * scale, frustum_objects=64 * scale,
+        roi_points=4096 * scale)
+    return dataclasses.replace(cfg, fsd=dataclasses.replace(cfg.fsd, caps=caps))
+
+
+def ddp_scenes(cfg):
+    """The (scene, camera) arrays of each rank: one sample each, the JAX
+    package's sharded-step test recipe (2 boxes, 120 background points)."""
+    from fullysparsefusion_tpu_torch import synthetic as S
+
+    out = []
+    for seed in DDP_SEEDS:
+        sc = S.make_scene_arrays(seed=seed, batch_size=1, boxes_per_sample=2, bg_points=120,
+                                 n_cap=cfg.caps.points, max_gt=cfg.caps.max_gt)
+        out.append((sc, S.make_camera_arrays(sc["gt_boxes"], sc["gt_labels"], sc["gt_valid"],
+                                             batch_size=1, num_classes=cfg.num_classes)))
+    return out
+
+
+def ddp_batch(sc, cam):
+    from fullysparsefusion_tpu_torch import synthetic as S
+    from fullysparsefusion_tpu_torch.parallel.train import Batch
+
+    pb, cd = S.fsf_inputs(sc, cam, device="cuda")
+    gt = S.to_ground_truth(sc, device="cuda")
+    return Batch(pb, cd, gt, gt)
+
+
+def eval_scene(i: int):
+    from fullysparsefusion_tpu_torch import synthetic as S
+    from fullysparsefusion_tpu_torch.config import tiny_fsf_config
+
+    return S.train_scene(EVAL_SEED0 + i, tiny_fsf_config(), batch_size=1, device="cuda")
+
+
+def ddp_rank(rank, world, group):
+    """One rank of ``ddp_two_ranks`` (gloo on the card): each case of
+    ``DDP_CASES`` from the seed-0 weights on this rank's scene (train-form
+    BN through ``sharded_train_step``; eval-form BN as the same forward
+    under ``bn_group``, backward and gradient mean), the gradients as the
+    optimizer gets them, the BN buffers and the kernels' launches; then
+    ``get_bboxes`` on this rank's shard of ``EVAL_SCENES`` scenes, the
+    records gathered and evaluated on every rank."""
+    from fullysparsefusion_tpu_torch.config import tiny_fsf_config
+    from fullysparsefusion_tpu_torch.eval.detection import evaluate_detections
+    from fullysparsefusion_tpu_torch.eval.records import scene_records
+    from fullysparsefusion_tpu_torch.models.layers import bn_group
+    from fullysparsefusion_tpu_torch.parallel import train as T
+    from fullysparsefusion_tpu_torch.parallel.eval import allgather_results, shard_indices
+    from fullysparsefusion_tpu_torch.train.hooks import RuntimeSchedule
+    from fullysparsefusion_tpu_torch.weights import build_fsf
+
+    cfg = ddp_config()
+    batch = ddp_batch(*ddp_scenes(cfg)[rank])
+    wrappers = kernel_wrappers()
+    out = {}
+    for name, (det_weight, train_bn) in DDP_CASES.items():
+        model = build_fsf(cfg, seed=0, device="cuda")
+        grads = {}
+
+        def mark(phase):
+            if phase == "allreduce":
+                grads.update({n: p.grad.detach().clone() for n, p in model.named_parameters()})
+
+        zero(wrappers)
+        if train_bn:
+            opt = T.make_optimizer(model, total_steps=10)
+            sched = RuntimeSchedule(enable_detection_step=0 if det_weight else 1)
+            _, losses, _ = T.sharded_train_step(model, opt, sched, batch, 0, group, mark)
+        else:
+            with bn_group(group):
+                losses = model(batch.pb, batch.cam, 1, batch.gt, batch.no_aug_gt, train=False,
+                               detection_weight=det_weight)["losses"]
+            T.total_loss(losses).backward()
+            T.allreduce_grads_mean_(model.parameters(), group)
+            mark("allreduce")
+            losses = T.allreduce_mean(losses, group)
+        torch.cuda.synchronize()
+        out[name] = dict(losses={k: float(v) for k, v in losses.items()}, grads=grads,
+                         buffers=dict(model.named_buffers()), launches=counts(wrappers))
+    model = build_fsf(tiny_fsf_config(), seed=0, device="cuda")
+    zero(wrappers)
+    mine = [(int(i), rec) for i in shard_indices(EVAL_SCENES, rank, world)
+            for rec in scene_records(model, [eval_scene(int(i))], 1)]
+    recs = sorted(allgather_results(mine, group), key=lambda t: t[0])
+    metrics = evaluate_detections([r for _, r in recs], model.cfg.num_classes,
+                                  model.cfg.fsd.class_names)
+    return dict(cases=out, eval=dict(mAP=metrics["mAP"], indices=[i for i, _ in recs],
+                                     own=len(mine), launches=counts(wrappers)))
+
+
+def single_process_step(cfg, scenes, det_weight, train_bn):
+    """One process at batch 2 (both ranks' scenes) with doubled capacities:
+    losses and gradients on the card."""
+    from fullysparsefusion_tpu_torch.parallel.train import total_loss
+    from fullysparsefusion_tpu_torch.weights import build_fsf
+
+    sc = {k: np.concatenate([s[k] for s, _ in scenes]) for k in scenes[0][0]}
+    sc["batch_idx"] = np.concatenate([s["batch_idx"] + i for i, (s, _) in enumerate(scenes)])
+    cam = {k: np.concatenate([c[k] for _, c in scenes]) for k in scenes[0][1]}
+    batch = ddp_batch(sc, cam)
+    model = build_fsf(ddp_config(scale=2), seed=0, device="cuda")
+    losses = model(batch.pb, batch.cam, 2, batch.gt, batch.no_aug_gt, train=train_bn,
+                   detection_weight=det_weight)["losses"]
+    total_loss(losses).backward()
+    return ({k: float(v.detach()) for k, v in losses.items()},
+            {n: p.grad.detach().cpu().numpy() for n, p in model.named_parameters()})
+
+
+def ddp_two_ranks(workdir: str) -> None:
+    """Tiny config, two processes on the one card joined by gloo (NCCL takes
+    one rank per card) on CUDA tensors: each case of ``DDP_CASES`` on two
+    ranks x batch 1 against one process at batch 2 with doubled
+    capacities. ``eval_bn`` (the ranks couple only through the loss
+    normalizers and the gradient mean) holds every loss, count (times 2)
+    and gradient to ``DDP_EXACT_RTOL``; the train-form cases (SyncBN;
+    detection weight 0 and 1) hold tests/test_train.py's DDP-equivalence
+    tolerances on the total loss, every term, the counts times 2, each
+    gradient's norm and the whole gradient's. (On the CPU the same
+    train-form step flips a few LiDAR-branch decisions between the two
+    layouts, in both packages: tests/test_torch_ddp_port.py,
+    tools/ddp_equivalence.py.) Both ranks' gradients and BN buffers must be
+    bitwise equal and each rank must have launched K1, K2 and dw_per_tap.
+    Then sharded eval: rank 0's mAP over the gathered records must equal
+    one process's over all ``EVAL_SCENES`` scenes."""
+    from fullysparsefusion_tpu_torch.config import tiny_fsf_config
+    from fullysparsefusion_tpu_torch.eval.records import eval_map
+    from fullysparsefusion_tpu_torch.parallel.launch import spawn_ranks
+    from fullysparsefusion_tpu_torch.weights import build_fsf
+
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(ddp_rank, 2, os.path.join(workdir, "gloo_two_ranks"), backend="gloo",
+                        device="cuda", timeout=300)
+    scenes = ddp_scenes(ddp_config())
+    report, errors = {}, []
+    for name, (det_weight, train_bn) in DDP_CASES.items():
+        r0, r1 = (r["cases"][name] for r in ranks)
+        for part in ("grads", "buffers"):
+            for k, v in r0[part].items():
+                if not np.array_equal(v, r1[part][k]):
+                    errors.append(f"ddp_two_ranks {name}: the ranks' {part[:-1]} {k} differ")
+        for r in (r0, r1):
+            for kern in ("gather_conv", "dw_per_tap", "ccl_roots"):
+                if r["launches"][kern] <= 0:
+                    errors.append(f"ddp_two_ranks {name}: a rank did not launch {kern}")
+        ref_losses, ref_grads = single_process_step(ddp_config(), scenes, det_weight, train_bn)
+        exact = name == "eval_bn"
+        worst = {}
+        for k, v in ref_losses.items():
+            count = not ("loss" in k or "recall" in k)
+            got = r0["losses"][k] * (2 if count else 1)
+            err = abs(got - v) / max(abs(v), 1e-5)
+            worst[k] = err
+            tol = (DDP_EXACT_RTOL if exact else DDP_TIGHT_RTOL
+                   if k in ("loss_sem_seg", "loss_vote")
+                   else DDP_COUNT_RTOL if count else DDP_TERM_RTOL)
+            if abs(got - v) > 1e-5 + tol * abs(v):
+                errors.append(f"ddp_two_ranks {name}: {k} {got} on two ranks, {v} in one")
+        total = sum(v for k, v in r0["losses"].items() if "loss" in k)
+        total_ref = sum(v for k, v in ref_losses.items() if "loss" in k)
+        if abs(total - total_ref) > (DDP_EXACT_RTOL if exact else DDP_TOTAL_RTOL) * abs(total_ref):
+            errors.append(f"ddp_two_ranks {name}: total loss {total} on two ranks, "
+                          f"{total_ref} in one")
+        leaf_worst, num, den = [], 0.0, 0.0
+        for k, g in ref_grads.items():
+            got = r0["grads"][k]
+            n1, n2 = float(np.linalg.norm(g)), float(np.linalg.norm(got))
+            d = float(np.linalg.norm(got - g))
+            rel = d / max(n1, 1e-12) if exact else abs(n2 - n1) / max(n1, 1e-12)
+            leaf_worst.append((rel, k))
+            if exact and d > DDP_EXACT_LEAF_RTOL * n1 + 1e-6:
+                errors.append(f"ddp_two_ranks {name}: gradient {k} differs by {rel:.3g}")
+            if not exact and abs(n2 - n1) > DDP_LEAF_RTOL * n1 + 1e-6:
+                errors.append(f"ddp_two_ranks {name}: gradient norm {k} {n2} against {n1}")
+            num, den = num + n2 * n2, den + n1 * n1
+        norm_err = abs(num ** 0.5 / den ** 0.5 - 1)
+        if norm_err > (DDP_EXACT_RTOL if exact else DDP_NORM_RTOL):
+            errors.append(f"ddp_two_ranks {name}: gradient norm differs by {norm_err:.3g}")
+        leaf_worst.sort(reverse=True)
+        report[name] = {
+            "detection_weight": det_weight, "train_bn": train_bn,
+            "total_loss": [total, total_ref], "grad_norm_rel_err": float(f"{norm_err:.3g}"),
+            "worst_terms": sorted(((float(f"{e:.3g}"), k) for k, e in worst.items()),
+                                  reverse=True)[:4],
+            "worst_leaves": [[k, float(f"{e:.3g}")] for e, k in leaf_worst[:3]],
+            "num_pos_x2_vs_one": {k: [2 * r0["losses"][k], v] for k, v in ref_losses.items()
+                                  if "num_pos" in k},
+            "launches_rank0": r0["launches"], "launches_rank1": r1["launches"]}
+    model = build_fsf(tiny_fsf_config(), seed=0, device="cuda")
+    single = eval_map(model, [eval_scene(i) for i in range(EVAL_SCENES)], 1,
+                      model.cfg.fsd.class_names)["mAP"]
+    ev0, ev1 = ranks[0]["eval"], ranks[1]["eval"]
+    if ev0["indices"] != list(range(EVAL_SCENES)) or ev0["mAP"] != ev1["mAP"]:
+        errors.append(f"sharded eval: gathered indices {ev0['indices']}, mAP {ev0['mAP']} / "
+                      f"{ev1['mAP']}")
+    if ev0["mAP"] != single:
+        errors.append(f"sharded eval: mAP {ev0['mAP']} on two ranks, {single} in one process")
+    for ev in (ev0, ev1):
+        if ev["launches"]["nms_keep"] <= 0:
+            errors.append("sharded eval: a rank did not launch nms_keep")
+    log({"phase": "ddp_two_ranks", "backend": "gloo", "device": "cuda", "world_size": 2,
+         "cases": report,
+         "sharded_eval": {"scenes": EVAL_SCENES, "mAP": ev0["mAP"], "single_mAP": single,
+                          "per_rank": [ev0["own"], ev1["own"]],
+                          "launches_rank0": ev0["launches"]},
+         "seconds": round(time.perf_counter() - t0, 3)})
+    if errors:
+        fail("; ".join(errors))
+
+
+def train_to_map(wrappers) -> None:
+    """tests/test_train_to_map.py on the card: the tiny config overfits one
+    batch-2 scene (seed 7, labels from 3 classes) in 60 AdamW steps (lr 1e-3,
+    no multipliers); mAP through get_bboxes (K3) and the port's
+    evaluate_detections must rise past the JAX test's thresholds."""
+    from fullysparsefusion_tpu_torch import synthetic as S
+    from fullysparsefusion_tpu_torch.config import tiny_fsf_config
+    from fullysparsefusion_tpu_torch.eval.records import eval_map
+    from fullysparsefusion_tpu_torch.parallel.train import Batch, make_optimizer, train_step
+    from fullysparsefusion_tpu_torch.train.hooks import RuntimeSchedule
+    from fullysparsefusion_tpu_torch.weights import build_fsf
+
+    t0 = time.perf_counter()
+    cfg = tiny_fsf_config()
+    pb, cam, gt = S.train_scene(T2M_SEED, cfg, T2M_BATCH, T2M_CLASSES, device="cuda")
+    model = build_fsf(cfg, seed=0, device="cuda")
+    opt = make_optimizer(model, base_lr=T2M_LR, total_steps=T2M_STEPS)
+    names, sched, batch = cfg.fsd.class_names, RuntimeSchedule(), Batch(pb, cam, gt, gt)
+    zero(wrappers)
+    map0 = eval_map(model, [(pb, cam, gt)], T2M_BATCH, names)["mAP"]
+    losses, step_ms = [], []
+    for step in range(T2M_STEPS):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        loss, _, _ = train_step(model, opt, sched, batch, step)
+        end.record()
+        losses.append(float(loss))
+        step_ms.append(start.elapsed_time(end))
+    map1 = eval_map(model, [(pb, cam, gt)], T2M_BATCH, names)["mAP"]
+    launches = counts(wrappers)
+    log({"phase": "train_to_map", "steps": T2M_STEPS, "map0": map0, "map1": map1,
+         "loss0": losses[0], "loss1": losses[-1], "loss_every_10": losses[::10],
+         "mean_step_ms": round(sum(step_ms) / len(step_ms), 3), "launches": launches,
+         "seconds": round(time.perf_counter() - t0, 3)})
+    if not (math.isfinite(losses[-1]) and losses[-1] < 0.7 * losses[0]):
+        fail(f"train_to_map: loss {losses[0]} -> {losses[-1]}, not below 0.7 of the first")
+    if not (map1 > map0 + 0.08 and map1 > 0.12):
+        fail(f"train_to_map: mAP {map0} -> {map1} (needs > map0 + 0.08 and > 0.12)")
+    for name in ("gather_conv", "dw_per_tap", "ccl_roots", "nms_keep"):
+        if launches[name] <= 0:
+            fail(f"train_to_map: kernel {name} was not launched")
+
+
 KERNEL_INFO = {
     "gather_conv": ("fullysparsefusion_tpu_torch/csrc/gather_conv.cu",
                     "fullysparsefusion_tpu/ops/pallas_kernels.py:366"),
@@ -867,7 +1269,6 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU", file=sys.stderr)
         return 1
-    from fullysparsefusion_tpu_torch.ops import ccl, nms, sparse_conv
     from fullysparsefusion_tpu_torch.weights import build_fsf
 
     # comparisons in f32 mean f32: no TF32 in cuBLAS or cuDNN
@@ -887,12 +1288,10 @@ def main() -> int:
     log({"phase": "setup", "seconds": round(time.perf_counter() - t0, 3),
          "parameters": sum(p.numel() for p in model.parameters())})
 
-    wrappers = {"gather_conv": sparse_conv.gather_conv, "ccl_roots": ccl.ccl_roots,
-                "nms_keep": nms.nms_keep, "dw_per_tap": sparse_conv.dw_per_tap}
-    for fn in wrappers.values():
-        fn.launches = 0
+    wrappers = kernel_wrappers()
+    zero(wrappers)
     dets = serve(model, requests)
-    launches = {name: fn.launches for name, fn in wrappers.items()}
+    launches = counts(wrappers)
     log({"phase": "main_path_launches", "requests": len(requests), **launches})
     for name, n in launches.items():
         if n <= 0 and name != "dw_per_tap":
@@ -912,6 +1311,13 @@ def main() -> int:
     adversarial_dw_per_tap()
     stats["dw_per_tap"] = train_stats["dw_per_tap"]
     launches["dw_per_tap"] = train_launches["dw_per_tap"]
+    with tempfile.TemporaryDirectory() as workdir:
+        ddp_launches = ddp_world1(model, opt, batch, wrappers, TRAIN_WARMUP + TRAIN_STEPS + 1,
+                                  workdir)
+        del model, opt, batch
+        torch.cuda.empty_cache()
+        ddp_two_ranks(workdir)
+    train_to_map(wrappers)
     entries = []
     for name, st in stats.items():
         source, replaces = KERNEL_INFO[name]
@@ -919,7 +1325,8 @@ def main() -> int:
                  "launches": launches[name], "max_abs_err": st["max_abs_err"],
                  "ms": st["ms"], "plain_ms": st["plain_ms"], "bound_ms": st["bound_ms"],
                  "bound_by": st["bound_by"], "library_ms": None,
-                 "train_launches_per_step": train_launches[name] / TRAIN_STEPS}
+                 "train_launches_per_step": train_launches[name] / TRAIN_STEPS,
+                 "sharded_launches_per_step": ddp_launches[name]}
         if name == "dw_per_tap":
             entry["bmm_ms"], entry["tile_fill"] = st["bmm_ms"], st["tile_fill"]
         if name == "gather_conv":

@@ -3,7 +3,8 @@ MLP, one small MLP per regression attribute plus the score branch; the
 single-task loss (focal classification over valid clusters, L1 on the
 coder's targets for positives, the optional corner loss, and the
 ``assign_recall`` / ``num_pos`` diagnostics); decode + per-sample
-multiclass rotated NMS."""
+multiclass rotated NMS. Under ``layers.bn_group`` the loss normalizers and
+the diagnostics' counts are means over the ranks (``layers.mesh_mean``)."""
 from __future__ import annotations
 
 import math
@@ -19,7 +20,7 @@ from ..core.coders import BasePointBBoxCoder
 from ..ops.geometry import corners_3d, points_box_assignment_batched
 from ..ops.nms import NMSResult, multiclass_nms_bev_batched
 from ..utils.containers import GroundTruth
-from .layers import MLP
+from .layers import MLP, mesh_mean
 
 
 class SeparateHead(nn.Module):
@@ -91,12 +92,12 @@ def cluster_head_loss(cls_logits, reg_preds, cluster_xyz, cluster_batch, cluster
     onehot = F.one_hot(labels.long(), num_classes + 1)[:, :num_classes].to(cls_logits.dtype)
     focal = L.sigmoid_focal_loss(cls_logits, onehot, cfg.focal_gamma, cfg.focal_alpha)
     vmask = cluster_valid.to(cls_logits.dtype)
-    cls_avg = vmask.sum()
+    cls_avg = mesh_mean(vmask.sum())
     loss_cls = cfg.loss_cls_weight * (focal * vmask[:, None]).sum() / cls_avg.clamp(min=1.0)
 
     targets = coder.encode(flat_boxes[safe], cluster_xyz)
     w = pos.to(reg_preds.dtype)
-    num_pos = w.sum()
+    num_pos = mesh_mean(w.sum())
     diff = (reg_preds - targets).abs() * w[:, None]
     den = num_pos.clamp(min=1.0)
 
@@ -129,8 +130,8 @@ def cluster_head_loss(cls_logits, reg_preds, cluster_xyz, cluster_batch, cluster
     flat_ok = gt.valid.reshape(b * m) & (flat_labels >= 0)
     gt_ids = torch.arange(b * m, device=assign.device)
     claimed = ((assign[None, :] == gt_ids[:, None]) & pos[None, :]).any(dim=1)
-    n_claimed = (claimed & flat_ok).float().sum()
-    n_gt = flat_ok.float().sum()
+    n_claimed = mesh_mean((claimed & flat_ok).float().sum())
+    n_gt = mesh_mean(flat_ok.float().sum())
     losses[prefix + "assign_recall"] = torch.where(
         n_gt > 0, n_claimed / n_gt.clamp(min=1e-6), torch.zeros_like(n_gt))
     losses[prefix + "num_pos"] = num_pos

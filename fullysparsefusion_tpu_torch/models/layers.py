@@ -3,15 +3,68 @@
 Child modules carry the JAX package's flax names (``Dense_0``, ``Norm_0``,
 ``LayerNorm_0``, ``MaskedBatchNorm_0``) so a flax variable tree maps onto
 the ``state_dict`` by a walk (:mod:`..weights`).
+
+Under :func:`bn_group` the train-form ``MaskedBatchNorm`` takes global
+statistics over the ranks of a ``torch.distributed`` group (SyncBN) and
+:func:`mesh_mean` averages the detection losses' normalizers over them, as
+the JAX package's ``bn_axis`` does over a mesh axis.
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 from functools import partial
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
+
+# The process group of a data-parallel train step (None: local math).
+# Consulted by MaskedBatchNorm's train form (SyncBN statistics) and by the
+# detection losses' normalizers (mesh_mean).
+_BN_GROUP: contextvars.ContextVar = contextvars.ContextVar("bn_group", default=None)
+
+
+@contextlib.contextmanager
+def bn_group(group: Optional["dist.ProcessGroup"]):
+    """Cross-rank statistics (SyncBN + synced loss normalizers) over
+    ``group`` inside the block; ``None`` keeps every rank's math local."""
+    tok = _BN_GROUP.set(group)
+    try:
+        yield
+    finally:
+        _BN_GROUP.reset(tok)
+
+
+def mesh_mean(x: torch.Tensor) -> torch.Tensor:
+    """Mean of ``x`` over the active group's ranks (identity outside
+    :func:`bn_group`). Applied to detached counts, so no gradient: with the
+    gradient mean of the train step it makes a normalised loss
+    ``global_sum / global_count``, as one process on the whole batch."""
+    group = _BN_GROUP.get()
+    if group is None:
+        return x
+    y = x.detach().clone()
+    dist.all_reduce(y, group=group)
+    return y / dist.get_world_size(group)
+
+
+class _AllReduceSum(torch.autograd.Function):
+    """Differentiable all-reduce (sum): the backward all-reduces the
+    cotangents, so each rank's gradient carries every rank's."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        y = x.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(y, group=group)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        return _AllReduceSum.apply(g, ctx.group), None
 
 
 def get_activation(name: str):
@@ -45,7 +98,10 @@ class MaskedBatchNorm(nn.Module):
     ``max(E[x²] − mean², 0)`` over ``n = max(Σvalid, 1)`` rows, and folds them
     into the running statistics with the torch momentum convention
     ``(1 − m)·running + m·batch`` (m = 0.01); in eval mode it uses the running
-    statistics. ``valid=None`` means every row."""
+    statistics. ``valid=None`` means every row. Under :func:`bn_group` the
+    (n, Σx, Σx²) of every rank are summed, in one differentiable
+    all-reduce, before the clamp of n, so every rank normalises by (and
+    folds into its buffers) the same global statistics."""
 
     def __init__(self, c: int, eps: float = 1e-3, momentum: float = 0.01):
         super().__init__()
@@ -63,9 +119,16 @@ class MaskedBatchNorm(nn.Module):
         else:
             w = (torch.ones(x.shape[0], device=x.device) if valid is None
                  else valid.float())[:, None]
-            n = w.sum().clamp(min=1.0)
-            mean = (xf * w).sum(0) / n
-            var = torch.clamp((xf * xf * w).sum(0) / n - mean ** 2, min=0.0)
+            n, sx, sxx = w.sum(), (xf * w).sum(0), (xf * xf * w).sum(0)
+            group = _BN_GROUP.get()
+            if group is not None:
+                c = sx.shape[0]
+                n, sx, sxx = _AllReduceSum.apply(torch.cat([n[None], sx, sxx]), group
+                                                 ).split([1, c, c])
+                n = n[0]
+            n = n.clamp(min=1.0)
+            mean = sx / n
+            var = torch.clamp(sxx / n - mean ** 2, min=0.0)
             with torch.no_grad():
                 m = self.momentum
                 self.running_mean.mul_(1 - m).add_(m * mean)

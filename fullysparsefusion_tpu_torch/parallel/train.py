@@ -1,4 +1,5 @@
-"""Training step (port of ``parallel/train.py``, one device).
+"""Training step (port of ``parallel/train.py``): one process, or data
+parallel over the ranks of a ``torch.distributed`` group.
 
 The JAX package's optimizer is the optax chain ``clip_by_global_norm(35)``
 → ``adamw(cyclic lr, wd 0.01)`` → per-module lr multipliers (the
@@ -16,9 +17,11 @@ from typing import Callable, Dict, Mapping, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from ..models.camera import CameraData
+from ..models.layers import bn_group
 from ..train.hooks import RuntimeSchedule
 from ..utils.containers import GroundTruth, PointBatch
 
@@ -114,24 +117,78 @@ def optimizer_step(opt: torch.optim.Optimizer, step: int) -> torch.Tensor:
     return gnorm
 
 
-def train_step(model: nn.Module, opt: torch.optim.Optimizer, sched: RuntimeSchedule,
-               batch: Batch, step: int, mark: Optional[Callable[[str], None]] = None):
-    """One step: train-mode forward with losses (thresh_buffer and the
-    detection weight from ``sched`` at ``step``), backward of
-    :func:`total_loss`, the global-norm clip, and AdamW at
-    ``lr_schedule(step)`` per group. ``mark(phase)``, when given, is called
-    as each of "forward", "backward" and "optimizer" ends. Returns (total
-    loss, losses, grad norm), all still on the device."""
+def allreduce_grads_mean_(params, group) -> None:
+    """Replace every parameter's ``.grad`` by its mean over ``group``'s
+    ranks, in one all-reduce of one flat f32 buffer. A parameter without a
+    gradient on this rank contributes zeros, so every rank issues the same
+    collective whatever its data; afterwards every parameter has one."""
+    params = list(params)
+    flat = torch.cat([(p.grad if p.grad is not None else torch.zeros_like(p)).reshape(-1)
+                      for p in params])
+    dist.all_reduce(flat, group=group)
+    flat.div_(dist.get_world_size(group))
+    for p, g in zip(params, flat.split([p.numel() for p in params])):
+        p.grad = g.view_as(p)
+
+
+def allreduce_mean(values: Dict[str, torch.Tensor], group) -> Dict[str, torch.Tensor]:
+    """The mean over ``group``'s ranks of each (detached, scalar) value, in
+    one all-reduce."""
+    keys = list(values)
+    flat = torch.stack([values[k].detach().float() for k in keys])
+    dist.all_reduce(flat, group=group)
+    flat.div_(dist.get_world_size(group))
+    return dict(zip(keys, flat.unbind()))
+
+
+def sharded_train_step(model: nn.Module, opt: torch.optim.Optimizer, sched: RuntimeSchedule,
+                       batch: Batch, step: int, group=None,
+                       mark: Optional[Callable[[str], None]] = None):
+    """One data-parallel step over the ranks of ``group``, each with its own
+    ``batch``: the train-mode forward with losses under
+    ``layers.bn_group(group)`` (SyncBN statistics, loss normalizers averaged
+    over the ranks), the backward of this rank's :func:`total_loss` (the
+    BN all-reduces carry every rank's cotangents into it), each gradient
+    averaged over the ranks, then :func:`optimizer_step` as in one process:
+    the same gradients keep the ranks' parameters equal. This is the JAX
+    package's ``make_generic_sharded_train_step``: the gradient of the mean
+    over ranks of the global loss. ``group=None`` is one process
+    (:func:`train_step`).
+
+    ``mark(phase)``, when given, is called as each of "forward",
+    "backward", "allreduce" (with a group: gradients and losses averaged)
+    and "optimizer" ends. Returns (total loss, losses, grad norm), the
+    first two averaged over the ranks, all still on the device."""
     mark = mark or (lambda phase: None)
     model.train()
     opt.zero_grad(set_to_none=True)
-    out = model(batch.pb, batch.cam, batch.gt.boxes.shape[0], batch.gt, batch.no_aug_gt,
-                thresh_buffer=sched.threshold_buffer(step),
-                detection_weight=1.0 if sched.enable_detection(step) else 0.0)
+    with bn_group(group):
+        out = model(batch.pb, batch.cam, batch.gt.boxes.shape[0], batch.gt, batch.no_aug_gt,
+                    thresh_buffer=sched.threshold_buffer(step),
+                    detection_weight=1.0 if sched.enable_detection(step) else 0.0)
     loss = total_loss(out["losses"])
     mark("forward")
     loss.backward()
     mark("backward")
+    losses = {k: v.detach() for k, v in out["losses"].items()}
+    loss = loss.detach()
+    if group is not None:
+        allreduce_grads_mean_(model.parameters(), group)
+        reduced = allreduce_mean(dict(losses, _total=loss), group)
+        loss = reduced.pop("_total")
+        losses = reduced
+        mark("allreduce")
     gnorm = optimizer_step(opt, step)
     mark("optimizer")
-    return loss.detach(), {k: v.detach() for k, v in out["losses"].items()}, gnorm
+    return loss, losses, gnorm
+
+
+def train_step(model: nn.Module, opt: torch.optim.Optimizer, sched: RuntimeSchedule,
+               batch: Batch, step: int, mark: Optional[Callable[[str], None]] = None):
+    """One step in one process: train-mode forward with losses
+    (thresh_buffer and the detection weight from ``sched`` at ``step``),
+    backward of :func:`total_loss`, the global-norm clip, and AdamW at
+    ``lr_schedule(step)`` per group. ``mark(phase)``, when given, is called
+    as each of "forward", "backward" and "optimizer" ends. Returns (total
+    loss, losses, grad norm), all still on the device."""
+    return sharded_train_step(model, opt, sched, batch, step, None, mark)

@@ -363,3 +363,15 @@ def fsf_inputs(scene: Dict[str, np.ndarray], cam: Dict[str, np.ndarray],
     """(PointBatch with no-aug channels, CameraData) on ``device``."""
     pts = dict(scene, points=with_noaug_channels_array(scene["points"]))
     return to_point_batch(pts, device), to_camera_data(cam, device)
+
+
+def train_scene(seed: int, cfg, batch_size: int = 2, scene_classes=None, device="cuda"):
+    """(PointBatch with no-aug channels, CameraData, GroundTruth) of the JAX
+    package's test scene (``make_scene_arrays``) at ``cfg``'s capacities,
+    GT labels drawn from the first ``scene_classes`` classes (default all),
+    and its cameras."""
+    sc = make_scene_arrays(seed=seed, batch_size=batch_size, n_cap=cfg.caps.points,
+                           max_gt=cfg.caps.max_gt, num_classes=scene_classes or cfg.num_classes)
+    cam = make_camera_arrays(sc["gt_boxes"], sc["gt_labels"], sc["gt_valid"],
+                             batch_size=batch_size, num_classes=cfg.num_classes)
+    return (*fsf_inputs(sc, cam, device), to_ground_truth(sc, device))
