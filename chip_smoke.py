@@ -59,7 +59,19 @@ Phases, each of which ends the script with a non-zero exit on failure:
    all-gathered) whose mAP must equal one process's;
 8. train_to_map: the tiny config overfits one scene in 60 AdamW steps and
    its mAP through ``get_bboxes`` (K3) and ``evaluate_detections`` must
-   rise past ``tests/test_train_to_map.py``'s thresholds.
+   rise past ``tests/test_train_to_map.py``'s thresholds;
+9. fsd: the LiDAR-only single-stage FSD at full nuScenes width with the six
+   class-group tasks (random weights from seed 0, the bench capacities and
+   scenes): four requests (the repeat bitwise equal, K3 launched once per
+   task), every K1, K2 and K3 call of one held to its plain version and
+   timed (K3 per task); two warm-up and five timed train steps (AdamW, the
+   segmentor core at 0.2; every loss finite, the segmentor's terms falling,
+   every task head and the segmentor getting a gradient) with the backward
+   kernels held to their plain versions; NCCL at world size 1 as in 6; and
+   the tiny six-task FSD on two gloo ranks against one process (eval-form
+   BN, every task's ``num_pos`` equal). At the start, beside the two small
+   checks, the tiny six-task FSD with the IoU branch on runs forward,
+   losses and decode on the GPU and on the CPU from the same weights.
 
 The last lines are a ``{"kernels": [...]}`` JSON object, the card's name and
 power limit from ``nvidia-smi``, and ``{"ok": true, "device": {...}}``.
@@ -490,32 +502,68 @@ def large_nms_keep():
          "ms": round(time_ms(functools.partial(nms.nms_keep, iou, order, vs, 0.5), 5), 5)})
 
 
-def check_kernels(model, request):
-    """Replay every kernel call of one request against its plain version."""
+def gather_conv_cost(feats, rows, w):
+    """K1's rulebook hits, FLOPs and bytes (each input read once, the output
+    written once)."""
+    n_src, cin = feats.shape
+    k3, n_out = rows.shape
+    cout = w.shape[2]
+    hits = int((rows < n_src).sum())
+    flop = 2.0 * hits * cin * cout
+    byte = 2.0 * n_src * cin + 4.0 * k3 * n_out + 2.0 * k3 * cin * cout + 4.0 * n_out * cout
+    return hits, flop, byte
+
+
+def ccl_cost(xy, batch, valid):
+    """K2's FLOPs (one distance test per valid same-batch pair) and bytes."""
+    g, n = valid.shape
+    same = (batch[:, :, None] == batch[:, None, :]) & valid[:, :, None] & valid[:, None, :]
+    return 5.0 * float(same.sum()), g * n * (8 + 4 + 1 + 4)
+
+
+def nms_cost(keep, order):
+    """K3's compares (one per later row, per kept row) and bytes."""
+    c, n = order.shape
+    pos = torch.arange(n, device=keep.device)
+    return float(((n - 1 - pos)[None, :] * keep).sum()), 4.0 * n * n + c * n * (4 + 1 + 1)
+
+
+def bound(flop, byte, peak_flops):
+    """(bound ms, what bounds it) of work of ``flop`` operations at
+    ``peak_flops`` moving ``byte`` bytes."""
+    return (max(flop / peak_flops, byte / PEAK_BYTES) * 1e3,
+            "operations" if flop / peak_flops > byte / PEAK_BYTES else "bytes")
+
+
+def capture_request(run):
+    """Every K1, K2 and K3 call of ``run()`` (one request), by kernel."""
     from fullysparsefusion_tpu_torch.ops import ccl, nms, sparse_conv
 
     calls = {"gather_conv": [], "ccl_roots": [], "nms_keep": []}
     with capture_calls(sparse_conv, "gather_conv", calls["gather_conv"]), \
             capture_calls(ccl, "ccl_roots", calls["ccl_roots"]), \
             capture_calls(nms, "nms_keep", calls["nms_keep"]), torch.inference_mode():
-        model.get_bboxes(model(*request, 1), 1)
+        run()
     torch.cuda.synchronize()
-    results = {}
+    return calls
 
-    # K1: gather conv, every conv of the frame's gather path, with its plan
+
+def replay_gather_conv(calls, phase: str) -> dict:
+    """K1: each captured call (with its plan) held to its plain version and
+    timed; logs one ``phase`` line with every call. Returns the totals."""
+    from fullysparsefusion_tpu_torch.ops import sparse_conv
+
     rows_out, tot = [], dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, err=0.0, flop=0.0, byte=0.0)
-    for feats, rows, w, plan in calls["gather_conv"]:
+    for feats, rows, w, plan in calls:
         err = check_gather_conv(feats, rows, w, plan)
         n_src, cin = feats.shape
         k3, n_out = rows.shape
         cout = w.shape[2]
-        hits = int((rows < n_src).sum())
-        flop = 2.0 * hits * cin * cout
-        byte = 2.0 * n_src * cin + 4.0 * k3 * n_out + 2.0 * k3 * cin * cout + 4.0 * n_out * cout
+        hits, flop, byte = gather_conv_cost(feats, rows, w)
         ms = time_ms(lambda: sparse_conv.gather_conv(feats, rows, w, plan), 20)
         eager = eager_ms(lambda: sparse_conv.gather_conv(feats, rows, w, plan), 20)
         plain_ms = eager_ms(lambda: sparse_conv.gather_conv_plain(feats, rows, w), 5)
-        bound = max(flop / PEAK_BF16_FLOPS, byte / PEAK_BYTES) * 1e3
+        bound_ms = bound(flop, byte, PEAK_BF16_FLOPS)[0]
         taps = tile_taps(plan, k3)
         rows_out.append({"n_src": n_src, "n_out": n_out, "cin": cin, "cout": cout, "hits": hits,
                          "hit_share": round(hits / (k3 * n_out), 4),
@@ -523,56 +571,72 @@ def check_kernels(model, request):
                          "all_miss_tiles": int((taps == 0).sum()), "tiles": int(taps.numel()),
                          "ms": round(ms, 4), "eager_ms": round(eager, 4),
                          "plain_ms": round(plain_ms, 4),
-                         "bound_ms": round(bound, 5), "max_abs_err": err})
-        for k, v in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", bound), ("flop", flop),
+                         "bound_ms": round(bound_ms, 5), "max_abs_err": err})
+        for k, v in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", bound_ms), ("flop", flop),
                      ("byte", byte)):
             tot[k] += v
         tot["err"] = max(tot["err"], err)
-    log({"phase": "kernel_calls", "kernel": "gather_conv", "calls": rows_out})
-    adversarial_gather_conv(*calls["gather_conv"][0][:3])
-    results["gather_conv"] = dict(
-        max_abs_err=tot["err"], ms=tot["ms"], plain_ms=tot["plain_ms"], bound_ms=tot["bound_ms"],
-        bound_by="operations" if tot["flop"] / PEAK_BF16_FLOPS > tot["byte"] / PEAK_BYTES
-        else "bytes")
+    log({"phase": phase, "kernel": "gather_conv", "calls": rows_out})
+    return dict(max_abs_err=tot["err"], ms=tot["ms"], plain_ms=tot["plain_ms"],
+                bound_ms=tot["bound_ms"], bound_by=bound(tot["flop"], tot["byte"],
+                                                         PEAK_BF16_FLOPS)[1])
 
-    # K2: CCL roots (bitwise)
-    (xy, batch, valid), = calls["ccl_roots"]
+
+def replay_ccl_roots(call, phase: str) -> dict:
+    """K2: the captured call held bitwise to its plain version and timed;
+    logs one ``phase`` line. Returns its numbers."""
+    from fullysparsefusion_tpu_torch.ops import ccl
+
+    xy, batch, valid = call
     got, sweeps = check_ccl_roots(xy, batch, valid, "the request's call")
     g, n = valid.shape
-    same = (batch[:, :, None] == batch[:, None, :]) & valid[:, :, None] & valid[:, None, :]
-    flop = 5.0 * float(same.sum())       # one distance test per valid same-batch pair
-    byte = g * n * (8 + 4 + 1 + 4)
-    bound = max(flop / PEAK_F32_FLOPS, byte / PEAK_BYTES) * 1e3
-    call = functools.partial(ccl.ccl_roots, xy, batch, valid)
-    results["ccl_roots"] = dict(
-        max_abs_err=0.0, ms=time_ms(call, 20),
-        plain_ms=eager_ms(lambda: ccl.ccl_roots_plain(xy, batch, valid), 3), bound_ms=bound,
-        bound_by="operations" if flop / PEAK_F32_FLOPS > byte / PEAK_BYTES else "bytes")
-    log({"phase": "kernel_calls", "kernel": "ccl_roots", "G": g, "N": n,
+    bound_ms, bound_by = bound(*ccl_cost(xy, batch, valid), PEAK_F32_FLOPS)
+    run = functools.partial(ccl.ccl_roots, xy, batch, valid)
+    res = dict(max_abs_err=0.0, ms=time_ms(run, 20),
+               plain_ms=eager_ms(lambda: ccl.ccl_roots_plain(xy, batch, valid), 3),
+               bound_ms=bound_ms, bound_by=bound_by)
+    log({"phase": phase, "kernel": "ccl_roots", "G": g, "N": n,
          "valid_per_problem": valid.sum(1).tolist(), "components": components(got),
-         "plain_sweeps": sweeps, "ms": round(results["ccl_roots"]["ms"], 5),
-         "eager_ms": round(eager_ms(call, 20), 5)})
-    adversarial_ccl_roots()
+         "plain_sweeps": sweeps, "ms": round(res["ms"], 5),
+         "eager_ms": round(eager_ms(run, 20), 5)})
+    return res
 
-    # K3: NMS keep masks (bitwise)
-    (iou, order, vs, thr), = calls["nms_keep"]
+
+def replay_nms_keep(call, phase: str, **tags) -> dict:
+    """K3: the captured call held bitwise to its plain version and timed;
+    logs one ``phase`` line (with ``tags``). Returns its numbers, the FLOPs
+    and bytes included."""
+    from fullysparsefusion_tpu_torch.ops import nms
+
+    iou, order, vs, thr = call
     got = nms.nms_keep(iou, order, vs, thr)
     ref = nms.nms_keep_plain(iou, order, vs, thr)
     if not torch.equal(got, ref):
         fail(f"nms_keep differs from its plain version at {int((got != ref).sum())} rows")
     c, n = order.shape
-    pos = torch.arange(n, device=got.device)
-    flop = float(((n - 1 - pos)[None, :] * got).sum())   # one compare per later row, per kept row
-    byte = 4.0 * n * n + c * n * (4 + 1 + 1)
-    bound = max(flop / PEAK_F32_FLOPS, byte / PEAK_BYTES) * 1e3
-    call = functools.partial(nms.nms_keep, iou, order, vs, thr)
-    results["nms_keep"] = dict(
-        max_abs_err=0.0, ms=time_ms(call, 20),
-        plain_ms=eager_ms(lambda: nms.nms_keep_plain(iou, order, vs, thr), 3), bound_ms=bound,
-        bound_by="operations" if flop / PEAK_F32_FLOPS > byte / PEAK_BYTES else "bytes")
-    log({"phase": "kernel_calls", "kernel": "nms_keep", "C": c, "N": n,
+    flop, byte = nms_cost(got, order)
+    bound_ms, bound_by = bound(flop, byte, PEAK_F32_FLOPS)
+    run = functools.partial(nms.nms_keep, iou, order, vs, thr)
+    res = dict(max_abs_err=0.0, ms=time_ms(run, 20),
+               plain_ms=eager_ms(lambda: nms.nms_keep_plain(iou, order, vs, thr), 3),
+               bound_ms=bound_ms, bound_by=bound_by, flop=flop, byte=byte)
+    log({"phase": phase, "kernel": "nms_keep", **tags, "C": c, "N": n,
          "kept": int(got.sum()), "valid": int(vs.sum()),
-         "ms": round(results["nms_keep"]["ms"], 5), "eager_ms": round(eager_ms(call, 20), 5)})
+         "ms": round(res["ms"], 5), "eager_ms": round(eager_ms(run, 20), 5)})
+    return res
+
+
+def check_kernels(model, request):
+    """Replay every kernel call of one request against its plain version."""
+    calls = capture_request(lambda: model.get_bboxes(model(*request, 1), 1))
+    results = {"gather_conv": replay_gather_conv(calls["gather_conv"], "kernel_calls")}
+    adversarial_gather_conv(*calls["gather_conv"][0][:3])
+    (call,) = calls["ccl_roots"]
+    results["ccl_roots"] = replay_ccl_roots(call, "kernel_calls")
+    adversarial_ccl_roots()
+    (call,) = calls["nms_keep"]
+    results["nms_keep"] = replay_nms_keep(call, "kernel_calls")
+    del results["nms_keep"]["flop"], results["nms_keep"]["byte"]
     large_nms_keep()
     return results
 
@@ -671,9 +735,13 @@ def train_setup(cfg, device="cuda"):
 TRAIN_WARMUP, TRAIN_STEPS = 2, 5
 
 
-def train(model, opt, batch, wrappers):
+def train(model, opt, batch, wrappers, must_train=MUST_TRAIN, phase="train", held=None):
     """Two warm-up steps, then five timed ones with the launch counters
-    zeroed just before and read just after. Returns the launches."""
+    zeroed just before and read just after; every loss must be finite, the
+    sum of the ``held`` loss terms (None: the summed loss) must fall from
+    the first timed step to the last, and each submodule of ``must_train``
+    must get a gradient. Logs ``{phase}_step`` lines and a ``phase`` line.
+    Returns the launches and K1's per pass per step."""
     from fullysparsefusion_tpu_torch.ops import sparse_conv
     from fullysparsefusion_tpu_torch.parallel.train import train_step
     from fullysparsefusion_tpu_torch.train.hooks import RuntimeSchedule
@@ -685,7 +753,7 @@ def train(model, opt, batch, wrappers):
     torch.cuda.reset_peak_memory_stats()
     zero(wrappers)
     plans0 = sparse_conv.plan_rulebook.calls
-    totals, split = [], {"forward_ms": [], "backward_ms": [], "optimizer_ms": []}
+    totals, watched, split = [], [], {"forward_ms": [], "backward_ms": [], "optimizer_ms": []}
     k1 = {"forward": [], "backward": []}
     for step in range(TRAIN_WARMUP, TRAIN_WARMUP + TRAIN_STEPS):
         events = {ph: torch.cuda.Event(enable_timing=True)
@@ -706,29 +774,33 @@ def train(model, opt, batch, wrappers):
             if not math.isfinite(v):
                 fail(f"train step {step}: non-finite {k}")
         totals.append(float(loss))
+        watched.append(totals[-1] if held is None else sum(losses[k] for k in held))
         phases = {}
         for a, b in (("start", "forward"), ("forward", "backward"), ("backward", "optimizer")):
             phases[f"{b}_ms"] = events[a].elapsed_time(events[b])
             split[f"{b}_ms"].append(phases[f"{b}_ms"])
         k1["forward"].append(k1_at["forward"] - k1_at["start"])
         k1["backward"].append(k1_at["backward"] - k1_at["forward"])
-        log({"phase": "train_step", "step": step, "loss": totals[-1], "grad_norm": float(gnorm),
+        log({"phase": f"{phase}_step", "step": step, "loss": totals[-1], "grad_norm": float(gnorm),
              "gpu_ms": round(events["start"].elapsed_time(events["optimizer"]), 3),
              "host_ms": round(host_ms, 3), **{k: round(v, 3) for k, v in phases.items()},
              "losses": losses})
     launches = counts(wrappers)
-    if not totals[-1] < totals[0]:
-        fail(f"the summed loss did not fall over the timed steps: {totals}")
-    for name in MUST_TRAIN:
+    if not watched[-1] < watched[0]:
+        fail(f"the {'summed loss' if held is None else ' + '.join(held)} did not fall over "
+             f"the timed steps: {watched}")
+    for name in must_train:
         norm = sum(float(p.grad.float().norm()) ** 2
-                   for p in getattr(model, name).parameters() if p.grad is not None)
+                   for p in model.get_submodule(name).parameters() if p.grad is not None)
         if not norm > 0.0:
             fail(f"zero gradient reaching {name}")
     for name in ("gather_conv", "dw_per_tap", "ccl_roots"):
         if launches[name] <= 0:
             fail(f"kernel {name} was not launched on the train path")
     per_step = {name: n / TRAIN_STEPS for name, n in launches.items()}
-    log({"phase": "train", "steps": TRAIN_STEPS, "loss_first": totals[0], "loss_last": totals[-1],
+    log({"phase": phase, "steps": TRAIN_STEPS, "loss_first": totals[0], "loss_last": totals[-1],
+         **({} if held is None else {"held": held, "held_first": watched[0],
+                                     "held_last": watched[-1]}),
          "mean_ms": {k: round(sum(v) / len(v), 3) for k, v in split.items()},
          "peak_mem_mib": round(torch.cuda.max_memory_allocated() / 2**20, 1),
          "launches_per_step": per_step,
@@ -756,9 +828,10 @@ def check_dw_per_tap(feats, rows, g, plan=None) -> float:
     return float((got - ref).abs().max())
 
 
-def check_train_kernels(model, opt, batch, step: int):
+def check_train_kernels(model, opt, batch, step: int, phase="train_kernel_calls"):
     """One more train step with K1's and dw_per_tap's calls captured; each
-    backward call is held to its plain version on the card and timed."""
+    backward call is held to its plain version on the card and timed
+    (logged as ``phase`` lines)."""
     from fullysparsefusion_tpu_torch.ops import sparse_conv
     from fullysparsefusion_tpu_torch.parallel.train import train_step
     from fullysparsefusion_tpu_torch.train.hooks import RuntimeSchedule
@@ -776,22 +849,20 @@ def check_train_kernels(model, opt, batch, step: int):
         n_src, cin = feats.shape
         k3, n_out = rows.shape
         cout = w.shape[2]
-        hits = int((rows < n_src).sum())
-        flop = 2.0 * hits * cin * cout
-        byte = 2.0 * n_src * cin + 4.0 * k3 * n_out + 2.0 * k3 * cin * cout + 4.0 * n_out * cout
+        hits, flop, byte = gather_conv_cost(feats, rows, w)
         ms = time_ms(lambda: sparse_conv.gather_conv(feats, rows, w, plan), 20)
         plain_ms = eager_ms(lambda: sparse_conv.gather_conv_plain(feats, rows, w), 3)
-        bound = max(flop / PEAK_BF16_FLOPS, byte / PEAK_BYTES) * 1e3
+        bound_ms = bound(flop, byte, PEAK_BF16_FLOPS)[0]
         rows_out.append({"n_src": n_src, "n_out": n_out, "cin": cin, "cout": cout, "hits": hits,
                          "taps_per_tile": round(float(tile_taps(plan, k3).float().mean()), 3),
                          "ms": round(ms, 4), "plain_ms": round(plain_ms, 4),
-                         "bound_ms": round(bound, 5), "max_abs_err": err})
-        for k, v in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", bound)):
+                         "bound_ms": round(bound_ms, 5), "max_abs_err": err})
+        for k, v in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", bound_ms)):
             tot[k] += v
         tot["err"] = max(tot["err"], err)
     if not rows_out or not any(r["cout"] > 256 for r in rows_out):
         fail("the backward ran no K1 call with more than 256 output channels")
-    log({"phase": "train_kernel_calls", "kernel": "gather_conv", "role": "d_feats",
+    log({"phase": phase, "kernel": "gather_conv", "role": "d_feats",
          "calls": rows_out, "ms": round(tot["ms"], 4), "bound_ms": round(tot["bound_ms"], 5)})
     results["gather_conv_bwd"] = tot
 
@@ -810,7 +881,7 @@ def check_train_kernels(model, opt, batch, step: int):
                 + 4.0 * k3 * cin * cout)
         ms = time_ms(lambda: sparse_conv.dw_per_tap(feats, rows, g, plan), 20)
         plain_ms = eager_ms(lambda: sparse_conv.dw_per_tap_plain(feats, rows, g), 3)
-        bound = max(flop / PEAK_BF16_FLOPS, byte / PEAK_BYTES) * 1e3
+        bound_ms = bound(flop, byte, PEAK_BF16_FLOPS)[0]
         n_chunks = sparse_conv.dw_chunk_slots(cin, cout, sms, k3)
         lists = []                                # the work list that the product consumed
         with capture_results(sparse_conv, "dw_work_list", lists):
@@ -825,20 +896,20 @@ def check_train_kernels(model, opt, batch, step: int):
                          "tile_fill": round(hits / max(1, sparse_conv.TILE_ROWS * hit_tiles), 4),
                          "ms": round(ms, 4), "plain_ms": round(plain_ms, 4),
                          "bmm_ms": round(bmm_ms(feats, rows, g), 4),
-                         "bound_ms": round(bound, 5), "max_abs_err": err})
-        for k, v in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", bound), ("flop", flop),
+                         "bound_ms": round(bound_ms, 5), "max_abs_err": err})
+        for k, v in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", bound_ms), ("flop", flop),
                      ("byte", byte), ("bmm_ms", rows_out[-1]["bmm_ms"]), ("hits", hits),
                      ("hit_tiles", hit_tiles)):
             tot[k] += v
         tot["err"] = max(tot["err"], err)
     tile_fill = tot["hits"] / max(1, sparse_conv.TILE_ROWS * tot["hit_tiles"])
-    log({"phase": "train_kernel_calls", "kernel": "dw_per_tap", "tolerance": DW_RTOL,
+    log({"phase": phase, "kernel": "dw_per_tap", "tolerance": DW_RTOL,
          "calls": rows_out, "ms": round(tot["ms"], 4), "bound_ms": round(tot["bound_ms"], 5),
          "bmm_ms": round(tot["bmm_ms"], 4), "tile_fill": round(tile_fill, 4)})
     results["dw_per_tap"] = dict(
         max_abs_err=tot["err"], ms=tot["ms"], plain_ms=tot["plain_ms"], bound_ms=tot["bound_ms"],
-        bound_by="operations" if tot["flop"] / PEAK_BF16_FLOPS > tot["byte"] / PEAK_BYTES
-        else "bytes", bmm_ms=tot["bmm_ms"], tile_fill=tile_fill)
+        bound_by=bound(tot["flop"], tot["byte"], PEAK_BF16_FLOPS)[1], bmm_ms=tot["bmm_ms"],
+        tile_fill=tile_fill)
     return results
 
 
@@ -913,7 +984,8 @@ EVAL_SCENES, EVAL_SEED0 = 6, 300
 T2M_STEPS, T2M_LR, T2M_SEED, T2M_CLASSES, T2M_BATCH = 60, 1e-3, 7, 3, 2
 
 
-def ddp_world1(model, opt, batch, wrappers, step: int, workdir: str) -> dict:
+def ddp_world1(model, opt, batch, wrappers, step: int, workdir: str,
+               phase="ddp_world1") -> dict:
     """Full width: ``train_step`` twice from one state (the card's step
     reproduced or not), then ``sharded_train_step`` under an NCCL group of
     world size 1 from the same state, its losses held to ``train_step``'s;
@@ -941,12 +1013,12 @@ def ddp_world1(model, opt, batch, wrappers, step: int, workdir: str) -> dict:
                 max(float((x - y).abs().max()) for x, y in zip(a[1], b[1])))
 
     first, again = run(train_step), run(train_step)
-    group = init_group(0, 1, os.path.join(workdir, "nccl_world1"), backend="nccl",
+    group = init_group(0, 1, os.path.join(workdir, f"nccl_{phase}"), backend="nccl",
                        device="cuda")
     sharded = run(sharded_train_step, group)
     loss_err, param_err = diff(first, sharded)
     if loss_err > DDP_WORLD1_TOL:
-        fail(f"ddp_world1: sharded_train_step's losses differ from train_step's by "
+        fail(f"{phase}: sharded_train_step's losses differ from train_step's by "
              f"{loss_err:.3g} (tolerance {DDP_WORLD1_TOL})")
     spread = diff(first, again)
     del again, sharded
@@ -961,7 +1033,7 @@ def ddp_world1(model, opt, batch, wrappers, step: int, workdir: str) -> dict:
                                         lambda phase: events[phase].record())
         torch.cuda.synchronize()
         if not math.isfinite(float(loss)):
-            fail(f"ddp_world1: non-finite loss at step {s}")
+            fail(f"{phase}: non-finite loss at step {s}")
         names = list(events)
         for a, b in zip(names, names[1:]):
             split[f"{b}_ms"].append(events[a].elapsed_time(events[b]))
@@ -974,7 +1046,7 @@ def ddp_world1(model, opt, batch, wrappers, step: int, workdir: str) -> dict:
     bare_ms = eager_ms(lambda: dist.all_reduce(flat, group=group), 5)
     dist.destroy_process_group()
     per_step = {k: v / DDP_WORLD1_STEPS for k, v in launches.items()}
-    log({"phase": "ddp_world1", "backend": "nccl", "world_size": 1,
+    log({"phase": phase, "backend": "nccl", "world_size": 1,
          "loss_rel_err_vs_train_step": float(f"{loss_err:.3g}"),
          "tolerance": DDP_WORLD1_TOL,
          "param_max_abs_diff_vs_train_step": param_err,
@@ -995,13 +1067,17 @@ def ddp_config(scale: int = 1):
     from fullysparsefusion_tpu_torch.config import tiny_fsf_config
 
     cfg = gather_only(tiny_fsf_config())
-    c = cfg.caps
-    caps = dataclasses.replace(
+    return dataclasses.replace(cfg, fsd=dataclasses.replace(cfg.fsd,
+                                                            caps=ample_caps(cfg.caps, scale)))
+
+
+def ample_caps(c, scale: int = 1):
+    """Tiny-config capacities ample for one scene, times ``scale``."""
+    return dataclasses.replace(
         c, points=512 * scale, voxels=c.voxels * scale, prevox=c.prevox * scale,
         fg_per_group=1024 * scale, cluster_voxels_per_group=1024 * scale,
         clusters=512 * scale, frustum_points=1024 * scale, frustum_objects=64 * scale,
         roi_points=4096 * scale)
-    return dataclasses.replace(cfg, fsd=dataclasses.replace(cfg.fsd, caps=caps))
 
 
 def ddp_scenes(cfg):
@@ -1108,6 +1184,62 @@ def single_process_step(cfg, scenes, det_weight, train_bn):
             {n: p.grad.detach().cpu().numpy() for n, p in model.named_parameters()})
 
 
+def hold_two_ranks(what, r0, r1, ref_losses, ref_grads, exact, kernels, errors) -> dict:
+    """Two ranks' results (losses averaged over the ranks, gradients as the
+    optimizer gets them, BN buffers, launches) against one process's on
+    both scenes: the ranks bitwise equal to each other and each of
+    ``kernels`` launched on each; ``exact`` (eval-form BN) holds every
+    loss, count (times 2) and gradient to ``DDP_EXACT_RTOL`` /
+    ``DDP_EXACT_LEAF_RTOL``, else tests/test_train.py's DDP-equivalence
+    tolerances. Appends what misses to ``errors``; returns the report."""
+    for part in ("grads", "buffers"):
+        for k, v in r0[part].items():
+            if not np.array_equal(v, r1[part][k]):
+                errors.append(f"{what}: the ranks' {part[:-1]} {k} differ")
+    for r in (r0, r1):
+        for kern in kernels:
+            if r["launches"][kern] <= 0:
+                errors.append(f"{what}: a rank did not launch {kern}")
+    worst = {}
+    for k, v in ref_losses.items():
+        count = not ("loss" in k or "recall" in k)
+        got = r0["losses"][k] * (2 if count else 1)
+        err = abs(got - v) / max(abs(v), 1e-5)
+        worst[k] = err
+        tol = (DDP_EXACT_RTOL if exact else DDP_TIGHT_RTOL
+               if k in ("loss_sem_seg", "loss_vote")
+               else DDP_COUNT_RTOL if count else DDP_TERM_RTOL)
+        if abs(got - v) > 1e-5 + tol * abs(v):
+            errors.append(f"{what}: {k} {got} on two ranks, {v} in one")
+    total = sum(v for k, v in r0["losses"].items() if "loss" in k)
+    total_ref = sum(v for k, v in ref_losses.items() if "loss" in k)
+    if abs(total - total_ref) > (DDP_EXACT_RTOL if exact else DDP_TOTAL_RTOL) * abs(total_ref):
+        errors.append(f"{what}: total loss {total} on two ranks, {total_ref} in one")
+    leaf_worst, num, den = [], 0.0, 0.0
+    for k, g in ref_grads.items():
+        got = r0["grads"][k]
+        n1, n2 = float(np.linalg.norm(g)), float(np.linalg.norm(got))
+        d = float(np.linalg.norm(got - g))
+        rel = d / max(n1, 1e-12) if exact else abs(n2 - n1) / max(n1, 1e-12)
+        leaf_worst.append((rel, k))
+        if exact and d > DDP_EXACT_LEAF_RTOL * n1 + 1e-6:
+            errors.append(f"{what}: gradient {k} differs by {rel:.3g}")
+        if not exact and abs(n2 - n1) > DDP_LEAF_RTOL * n1 + 1e-6:
+            errors.append(f"{what}: gradient norm {k} {n2} against {n1}")
+        num, den = num + n2 * n2, den + n1 * n1
+    norm_err = abs(num ** 0.5 / den ** 0.5 - 1)
+    if norm_err > (DDP_EXACT_RTOL if exact else DDP_NORM_RTOL):
+        errors.append(f"{what}: gradient norm differs by {norm_err:.3g}")
+    leaf_worst.sort(reverse=True)
+    return {"total_loss": [total, total_ref], "grad_norm_rel_err": float(f"{norm_err:.3g}"),
+            "worst_terms": sorted(((float(f"{e:.3g}"), k) for k, e in worst.items()),
+                                  reverse=True)[:4],
+            "worst_leaves": [[k, float(f"{e:.3g}")] for e, k in leaf_worst[:3]],
+            "num_pos_x2_vs_one": {k: [2 * r0["losses"][k], v] for k, v in ref_losses.items()
+                                  if "num_pos" in k},
+            "launches_rank0": r0["launches"], "launches_rank1": r1["launches"]}
+
+
 def ddp_two_ranks(workdir: str) -> None:
     """Tiny config, two processes on the one card joined by gloo (NCCL takes
     one rank per card) on CUDA tensors: each case of ``DDP_CASES`` on two
@@ -1136,57 +1268,10 @@ def ddp_two_ranks(workdir: str) -> None:
     report, errors = {}, []
     for name, (det_weight, train_bn) in DDP_CASES.items():
         r0, r1 = (r["cases"][name] for r in ranks)
-        for part in ("grads", "buffers"):
-            for k, v in r0[part].items():
-                if not np.array_equal(v, r1[part][k]):
-                    errors.append(f"ddp_two_ranks {name}: the ranks' {part[:-1]} {k} differ")
-        for r in (r0, r1):
-            for kern in ("gather_conv", "dw_per_tap", "ccl_roots"):
-                if r["launches"][kern] <= 0:
-                    errors.append(f"ddp_two_ranks {name}: a rank did not launch {kern}")
         ref_losses, ref_grads = single_process_step(ddp_config(), scenes, det_weight, train_bn)
-        exact = name == "eval_bn"
-        worst = {}
-        for k, v in ref_losses.items():
-            count = not ("loss" in k or "recall" in k)
-            got = r0["losses"][k] * (2 if count else 1)
-            err = abs(got - v) / max(abs(v), 1e-5)
-            worst[k] = err
-            tol = (DDP_EXACT_RTOL if exact else DDP_TIGHT_RTOL
-                   if k in ("loss_sem_seg", "loss_vote")
-                   else DDP_COUNT_RTOL if count else DDP_TERM_RTOL)
-            if abs(got - v) > 1e-5 + tol * abs(v):
-                errors.append(f"ddp_two_ranks {name}: {k} {got} on two ranks, {v} in one")
-        total = sum(v for k, v in r0["losses"].items() if "loss" in k)
-        total_ref = sum(v for k, v in ref_losses.items() if "loss" in k)
-        if abs(total - total_ref) > (DDP_EXACT_RTOL if exact else DDP_TOTAL_RTOL) * abs(total_ref):
-            errors.append(f"ddp_two_ranks {name}: total loss {total} on two ranks, "
-                          f"{total_ref} in one")
-        leaf_worst, num, den = [], 0.0, 0.0
-        for k, g in ref_grads.items():
-            got = r0["grads"][k]
-            n1, n2 = float(np.linalg.norm(g)), float(np.linalg.norm(got))
-            d = float(np.linalg.norm(got - g))
-            rel = d / max(n1, 1e-12) if exact else abs(n2 - n1) / max(n1, 1e-12)
-            leaf_worst.append((rel, k))
-            if exact and d > DDP_EXACT_LEAF_RTOL * n1 + 1e-6:
-                errors.append(f"ddp_two_ranks {name}: gradient {k} differs by {rel:.3g}")
-            if not exact and abs(n2 - n1) > DDP_LEAF_RTOL * n1 + 1e-6:
-                errors.append(f"ddp_two_ranks {name}: gradient norm {k} {n2} against {n1}")
-            num, den = num + n2 * n2, den + n1 * n1
-        norm_err = abs(num ** 0.5 / den ** 0.5 - 1)
-        if norm_err > (DDP_EXACT_RTOL if exact else DDP_NORM_RTOL):
-            errors.append(f"ddp_two_ranks {name}: gradient norm differs by {norm_err:.3g}")
-        leaf_worst.sort(reverse=True)
-        report[name] = {
-            "detection_weight": det_weight, "train_bn": train_bn,
-            "total_loss": [total, total_ref], "grad_norm_rel_err": float(f"{norm_err:.3g}"),
-            "worst_terms": sorted(((float(f"{e:.3g}"), k) for k, e in worst.items()),
-                                  reverse=True)[:4],
-            "worst_leaves": [[k, float(f"{e:.3g}")] for e, k in leaf_worst[:3]],
-            "num_pos_x2_vs_one": {k: [2 * r0["losses"][k], v] for k, v in ref_losses.items()
-                                  if "num_pos" in k},
-            "launches_rank0": r0["launches"], "launches_rank1": r1["launches"]}
+        report[name] = dict(detection_weight=det_weight, train_bn=train_bn, **hold_two_ranks(
+            f"ddp_two_ranks {name}", r0, r1, ref_losses, ref_grads, name == "eval_bn",
+            ("gather_conv", "dw_per_tap", "ccl_roots"), errors))
     model = build_fsf(tiny_fsf_config(), seed=0, device="cuda")
     single = eval_map(model, [eval_scene(i) for i in range(EVAL_SCENES)], 1,
                       model.cfg.fsd.class_names)["mAP"]
@@ -1252,6 +1337,348 @@ def train_to_map(wrappers) -> None:
             fail(f"train_to_map: kernel {name} was not launched")
 
 
+# -- LiDAR-only single-stage FSD, six class-group tasks -------------------------
+
+# the segmentor core at 0.2, as TRAIN_LR_RULES does for FSF's
+FSD_LR_RULES = {"segmentor.SegmentorCore_0": 0.2}
+FSD_TASKS = 6
+# the loss terms held to fall over the timed train steps: at random weights
+# the six heads find 0 to 4 positives a step among ~800 clusters, so their
+# per-positive terms jump by several units from step to step (as FSF's fsd_
+# terms do); the segmentor's terms are over every point
+FSD_HELD_LOSSES = ("loss_sem_seg", "loss_vote")
+FSD_MUST_TRAIN = ("segmentor",) + tuple(f"query_branch.bbox_head.SeparateHead_{t}"
+                                        for t in range(FSD_TASKS))
+
+
+def fsd_config():
+    """Full-width multi-task FSD: the ``FSDConfig`` defaults (the nuScenes
+    widths) with one task per class group, at the bench capacities."""
+    from fullysparsefusion_tpu_torch.config import (
+        NUSC_GROUPS, Capacities, FSDConfig, VoteSegmentorConfig)
+
+    seg = VoteSegmentorConfig(unet_stage_capacities=BENCH_STAGE_CAPS)
+    return FSDConfig(tasks=NUSC_GROUPS, caps=Capacities(**BENCH_CAPS), segmentor=seg)
+
+
+def fsd_scene(seed: int, cfg, device="cuda"):
+    """(PointBatch, GroundTruth) of the bench scene of ``seed`` (the scene
+    ``bench_scene`` gives FSF, without cameras)."""
+    from fullysparsefusion_tpu_torch import synthetic as S
+
+    sc = S.make_lidar_scene_arrays(seed=seed, n_cap=cfg.caps.points, max_gt=cfg.caps.max_gt,
+                                   n_boxes=32, extent=48.0)
+    return S.to_point_batch(sc, device), S.to_ground_truth(sc, device)
+
+
+def check_close(what: str, name: str, a, b, tol: float) -> float:
+    """``b`` (either device) within ``tol`` · (1 + |a|) of ``a`` (the CPU's);
+    returns the largest absolute difference."""
+    a, b = a.float().cpu(), b.detach().float().cpu()
+    err = (a - b).abs()
+    if (err > tol * (1 + a.abs())).any():
+        fail(f"{what}: {name} differs by up to {err.max().item():.3g}")
+    return err.max().item() if err.numel() else 0.0
+
+
+def small_fsd_reference_check(device="cuda"):
+    """Tiny six-task FSD with the IoU branch on, forward + losses +
+    ``get_bboxes``: GPU (kernels) against CPU (plain versions), same
+    weights and scene, ``small_reference_check``'s tolerances; the losses
+    as ``small_train_reference_check`` holds them."""
+    from fullysparsefusion_tpu_torch import synthetic as S
+    from fullysparsefusion_tpu_torch.config import NUSC_GROUPS, tiny_fsd_config
+    from fullysparsefusion_tpu_torch.weights import build_fsd
+
+    t0 = time.perf_counter()
+    cfg = tiny_fsd_config(tasks=NUSC_GROUPS)
+    cfg = dataclasses.replace(cfg, head=dataclasses.replace(cfg.head, with_iou=True))
+    sc = S.make_scene_arrays(seed=0, n_cap=cfg.caps.points, max_gt=cfg.caps.max_gt)
+    ref_model = build_fsd(cfg, seed=0, device="cpu")
+    outs = {}
+    for dev, model in (("cpu", ref_model), (device, copy.deepcopy(ref_model).to(device))):
+        pb, gt = S.to_point_batch(sc, dev), S.to_ground_truth(sc, dev)
+        with torch.inference_mode():
+            res = model(pb, 2, gt)
+            det = model.get_bboxes(res, 2)
+            iou = model.query_branch.bbox_head(res["obj_feat"], res["cluster_valid"])
+        outs[dev] = (res, det, iou["iou_logits_tasks"])
+    (r_cpu, d_cpu, i_cpu), (r_gpu, d_gpu, i_gpu) = outs["cpu"], outs[device]
+    what = "small FSD reference"
+    if not torch.equal(r_cpu["cluster_valid"], r_gpu["cluster_valid"].cpu()):
+        fail(f"{what}: the clusters differ")
+    report = {"seg_logits": check_close(what, "seg_logits", r_cpu["seg_out"]["seg_logits"],
+                                        r_gpu["seg_out"]["seg_logits"], BF16_CHAIN_TOL)}
+    pairs = {"cls_logits": (r_cpu["cls_logits_tasks"], r_gpu["cls_logits_tasks"]),
+             "reg_preds": (r_cpu["reg_preds_tasks"], r_gpu["reg_preds_tasks"]),
+             "iou_logits": (i_cpu, i_gpu)}
+    for key, (a, b) in pairs.items():
+        report[key] = max(check_close(what, f"task {t} {key}", a[t], b[t], BF16_CHAIN_TOL)
+                          for t in range(FSD_TASKS))
+    l_cpu, l_gpu = r_cpu["losses"], r_gpu["losses"]
+    if set(l_cpu) != set(l_gpu) or len([k for k in l_cpu if k.startswith("task5_")]) < 5:
+        fail(f"{what}: loss keys {sorted(l_gpu)}")
+    worst = 0.0
+    for k, a in l_cpu.items():
+        a, b = float(a), float(l_gpu[k])
+        err = abs(a - b) / max(1.0, abs(a))
+        if not (math.isfinite(a) and math.isfinite(b)) or err > TRAIN_LOSS_TOL or \
+                (("num_pos" in k or "recall" in k) and a != b):
+            fail(f"{what}: {k} {a} on the CPU, {b} on the GPU")
+        worst = max(worst, err)
+    if not torch.equal(d_cpu.valid, d_gpu.valid.cpu()) or \
+            not torch.equal(d_cpu.labels, d_gpu.labels.cpu()):
+        fail(f"{what}: detection validity or labels differ")
+    report["det_boxes"] = check_close(what, "det boxes", d_cpu.boxes, d_gpu.boxes, BF16_CHAIN_TOL)
+    report["det_scores"] = check_close(what, "det scores", d_cpu.scores, d_gpu.scores,
+                                       BF16_CHAIN_TOL)
+    n_det, n_clusters = int(d_cpu.valid.sum()), int(r_cpu["num_clusters"])
+    if min(n_det, n_clusters) <= 0:
+        fail(f"{what}: vacuous scene, {n_det} detections, {n_clusters} clusters")
+    log({"phase": "small_fsd_reference", "tasks": FSD_TASKS, "with_iou": True,
+         "detections": n_det, "clusters": n_clusters, "losses": len(l_cpu),
+         "loss_rel_err": float(f"{worst:.3g}"), "tolerance": BF16_CHAIN_TOL,
+         "max_abs_err": {k: float(f"{v:.3g}") for k, v in report.items()},
+         "seconds": round(time.perf_counter() - t0, 3)})
+
+
+def fsd_serve(model, requests, wrappers) -> dict:
+    """Forward + get_bboxes per request under ``torch.inference_mode()``,
+    each with the launch counters zeroed just before and read just after:
+    K1, K2 and K3 must launch, K3 once per task. Returns the detections and
+    the mean launches per request."""
+    t0 = time.perf_counter()
+    tasks, max_num = len(model.cfg.task_tuple()), model.cfg.head.max_num
+    dets, launches = [], []
+    for seed, pb in requests:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero(wrappers)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t_req = time.perf_counter()
+        start.record()
+        with torch.inference_mode():
+            res = model(pb, 1)
+            det = model.get_bboxes(res, 1)
+        end.record()
+        det = type(det)(*[t.cpu() for t in det])  # the answer reaches the host
+        host_ms = (time.perf_counter() - t_req) * 1e3
+        torch.cuda.synchronize()
+        launches.append(counts(wrappers))
+        for name, t in zip(det._fields, det):
+            if t.is_floating_point() and not torch.isfinite(t).all():
+                fail(f"FSD request seed {seed}: non-finite {name}")
+        if det.valid.shape != (1, tasks * max_num):
+            fail(f"FSD request seed {seed}: detections shape {tuple(det.valid.shape)}")
+        if launches[-1]["nms_keep"] != tasks or min(launches[-1]["gather_conv"],
+                                                   launches[-1]["ccl_roots"]) <= 0:
+            fail(f"FSD request seed {seed}: launches {launches[-1]}")
+        log({"phase": "fsd_request", "seed": seed, "detections": int(det.valid.sum()),
+             "detections_per_task": det.valid.reshape(tasks, max_num).sum(1).tolist(),
+             "clusters": int(res["num_clusters"]), "fg_points": int(res["num_fg_points"]),
+             "gpu_ms": round(start.elapsed_time(end), 3), "host_ms": round(host_ms, 3),
+             "peak_mem_mib": round(torch.cuda.max_memory_allocated() / 2**20, 1),
+             "launches": launches[-1]})
+        dets.append(det)
+    first, again = dets[0], dets[-1]
+    for name, a, b in zip(first._fields, first, again):
+        if not torch.equal(a, b):
+            fail(f"re-run of FSD request seed 0 changed {name}")
+    per_request = {k: sum(n[k] for n in launches) / len(launches) for k in launches[0]}
+    log({"phase": "fsd_serve", "requests": len(requests), "launches_per_request": per_request,
+         "seconds": round(time.perf_counter() - t0, 3)})
+    return per_request
+
+
+def fsd_check_kernels(model, pb) -> dict:
+    """Every K1, K2 and K3 call of one FSD request held to its plain version
+    (K1 within ``K1_RTOL``, K2 and K3 bitwise) and timed; K3's six calls
+    listed per task."""
+    t0 = time.perf_counter()
+    calls = capture_request(lambda: model.get_bboxes(model(pb, 1), 1))
+    results = {"gather_conv": replay_gather_conv(calls["gather_conv"], "fsd_kernel_calls")}
+    (call,) = calls["ccl_roots"]
+    results["ccl_roots"] = replay_ccl_roots(call, "fsd_kernel_calls")
+    if len(calls["nms_keep"]) != FSD_TASKS:
+        fail(f"the FSD request made {len(calls['nms_keep'])} nms_keep calls, not {FSD_TASKS}")
+    per_task = [replay_nms_keep(call, "fsd_kernel_calls", task=t)
+                for t, call in enumerate(calls["nms_keep"])]
+    flop, byte = sum(r["flop"] for r in per_task), sum(r["byte"] for r in per_task)
+    results["nms_keep"] = dict(
+        max_abs_err=0.0, **{k: sum(r[k] for r in per_task) for k in ("ms", "plain_ms", "bound_ms")},
+        bound_by=bound(flop, byte, PEAK_F32_FLOPS)[1],
+        per_task=[{"task": t, "C": int(c[1].shape[0]), "N": int(c[1].shape[1]),
+                   **{k: r[k] for k in ("ms", "plain_ms", "bound_ms")}}
+                  for t, (c, r) in enumerate(zip(calls["nms_keep"], per_task))])
+    log({"phase": "fsd_kernels", "calls": {k: len(v) for k, v in calls.items()},
+         "seconds": round(time.perf_counter() - t0, 3)})
+    return results
+
+
+# one group's foreground at the bench capacity, the SSG alternative's picks
+SSG_POINTS, SSG_NUM_FPS, SSG_RADIUS = 4096, 256, 1.0
+
+
+def fsd_clustering_alternatives(cfg) -> None:
+    """One group's clustering of ``SSG_POINTS`` voted centers (blobs of
+    objects, 85 % valid) on the card, by the two methods of
+    ``hybrid_cluster_one_group``: "ssg" (furthest point sampling, a loop of
+    ``SSG_NUM_FPS`` arg-max steps in plain PyTorch, then ball grouping) and
+    "ccl" (K2, one problem); each timed eagerly by CUDA events, and the
+    card's labels set beside the CPU's."""
+    from fullysparsefusion_tpu_torch.models.fsd import hybrid_cluster_one_group
+
+    t0 = time.perf_counter()
+    g = torch.Generator().manual_seed(0)
+    blobs = torch.rand(64, 3, generator=g) * torch.tensor([80.0, 80.0, 2.0]) - \
+        torch.tensor([40.0, 40.0, 1.0])
+    centers = blobs[torch.randint(0, 64, (SSG_POINTS,), generator=g)] + \
+        0.4 * torch.randn(SSG_POINTS, 3, generator=g)
+    valid = torch.rand(SSG_POINTS, generator=g) < 0.85
+    batch = torch.zeros(SSG_POINTS, dtype=torch.int32)
+    report = {}
+    for method in ("ssg", "ccl"):
+        def run(dev):
+            return hybrid_cluster_one_group(
+                centers.to(dev), batch.to(dev), valid.to(dev), 0, cfg, method=method,
+                num_fps=SSG_NUM_FPS, radius=SSG_RADIUS, batch_size=1)
+
+        lab, _ = run("cuda")
+        ref, _ = run("cpu")
+        report[method] = {"ms": round(eager_ms(lambda: run("cuda"), 5), 3),
+                          "clusters": int(lab.max()) + 1,
+                          "labels_equal_to_cpu": bool(torch.equal(lab.cpu(), ref))}
+    log({"phase": "fsd_clustering_alternatives", "points": SSG_POINTS, "num_fps": SSG_NUM_FPS,
+         "radius": SSG_RADIUS, **report, "seconds": round(time.perf_counter() - t0, 3)})
+
+
+def fsd_config_two_ranks(scale: int = 1):
+    """The tiny six-task FSD config, every UNet conv on the gather path,
+    capacities ample for one scene times ``scale``."""
+    from fullysparsefusion_tpu_torch.config import NUSC_GROUPS, tiny_fsd_config
+
+    cfg = tiny_fsd_config(tasks=NUSC_GROUPS)
+    seg = dataclasses.replace(cfg.segmentor, unet_dense_min_occupancy=2.0)
+    return dataclasses.replace(cfg, segmentor=seg, caps=ample_caps(cfg.caps, scale))
+
+
+def fsd_batch(sc):
+    from fullysparsefusion_tpu_torch import synthetic as S
+    from fullysparsefusion_tpu_torch.parallel.train import Batch
+
+    return Batch(S.to_point_batch(sc, "cuda"), None, S.to_ground_truth(sc, "cuda"), None)
+
+
+def fsd_eval_bn_step(model, batch, batch_size: int, group=None):
+    """Eval-form BN forward with losses (under ``bn_group(group)``),
+    backward, and with a group the gradients' and losses' means: losses and
+    gradients as the optimizer would get them."""
+    from fullysparsefusion_tpu_torch.models.layers import bn_group
+    from fullysparsefusion_tpu_torch.parallel import train as T
+
+    with bn_group(group):
+        losses = model(batch.pb, batch_size, batch.gt, train=False)["losses"]
+    T.total_loss(losses).backward()
+    if group is not None:
+        T.allreduce_grads_mean_(model.parameters(), group)
+        losses = T.allreduce_mean(losses, group)
+    torch.cuda.synchronize()
+    return ({k: float(v.detach()) for k, v in losses.items()},
+            {n: p.grad.detach().cpu().numpy() for n, p in model.named_parameters()})
+
+
+def fsd_ddp_rank(rank, world, group):
+    """One rank of ``fsd_two_ranks`` (gloo on the card): the tiny six-task
+    FSD from the seed-0 weights on this rank's scene, eval-form BN."""
+    from fullysparsefusion_tpu_torch.weights import build_fsd
+
+    cfg = fsd_config_two_ranks()
+    wrappers = kernel_wrappers()
+    model = build_fsd(cfg, seed=0, device="cuda")
+    zero(wrappers)
+    losses, grads = fsd_eval_bn_step(model, fsd_batch(ddp_scenes(cfg)[rank][0]), 1, group)
+    return dict(losses=losses, grads=grads, buffers=dict(model.named_buffers()),
+                launches=counts(wrappers))
+
+
+def fsd_two_ranks(workdir: str) -> None:
+    """Tiny six-task FSD on two gloo processes on the one card (eval-form
+    BN) against one process at batch 2 with doubled capacities:
+    ``hold_two_ranks``' exact bounds, the ranks bitwise equal, K1, K2 and
+    dw_per_tap launched on each, every task's ``num_pos`` (a mean over the
+    ranks, times 2) equal to one process's."""
+    from fullysparsefusion_tpu_torch.parallel.launch import spawn_ranks
+    from fullysparsefusion_tpu_torch.weights import build_fsd
+
+    t0 = time.perf_counter()
+    r0, r1 = spawn_ranks(fsd_ddp_rank, 2, os.path.join(workdir, "gloo_fsd_two_ranks"),
+                         backend="gloo", device="cuda", timeout=300)
+    scenes = ddp_scenes(fsd_config_two_ranks())
+    sc = {k: np.concatenate([s[k] for s, _ in scenes]) for k in scenes[0][0]}
+    sc["batch_idx"] = np.concatenate([s["batch_idx"] + i for i, (s, _) in enumerate(scenes)])
+    ref_losses, ref_grads = fsd_eval_bn_step(
+        build_fsd(fsd_config_two_ranks(scale=2), seed=0, device="cuda"), fsd_batch(sc), 2)
+    errors = []
+    report = hold_two_ranks("fsd_two_ranks", r0, r1, ref_losses, ref_grads, True,
+                            ("gather_conv", "dw_per_tap", "ccl_roots"), errors)
+    for k, v in ref_losses.items():
+        if "num_pos" in k and 2 * r0["losses"][k] != v:
+            errors.append(f"fsd_two_ranks: {k} {2 * r0['losses'][k]} on two ranks, {v} in one")
+    if sum(v > 0 for k, v in ref_losses.items() if "num_pos" in k) < 2:
+        errors.append(f"fsd_two_ranks: vacuous scenes, num_pos {ref_losses}")
+    log({"phase": "fsd_two_ranks", "backend": "gloo", "device": "cuda", "world_size": 2,
+         "train_bn": False, **report, "seconds": round(time.perf_counter() - t0, 3)})
+    if errors:
+        fail("; ".join(errors))
+
+
+def fsd_phase(wrappers) -> dict:
+    """The full-width six-task FSD: serve four requests, replay the kernels
+    of one, train (two warm-ups, five timed steps, the backward kernels held
+    to their plain versions), NCCL at world size 1 from the trained state;
+    then the tiny six-task FSD on two gloo ranks. Returns the kernel numbers
+    and launches for the kernels line."""
+    from fullysparsefusion_tpu_torch.parallel.train import Batch, make_optimizer
+    from fullysparsefusion_tpu_torch.weights import build_fsd
+
+    t0 = time.perf_counter()
+    cfg = fsd_config()
+    model = build_fsd(cfg, seed=0, device="cuda")
+    requests = [(s, fsd_scene(s, cfg)[0]) for s in REQUEST_SEEDS]
+    torch.cuda.synchronize()
+    log({"phase": "fsd_setup", "tasks": [list(t) for t in cfg.task_tuple()],
+         "parameters": sum(p.numel() for p in model.parameters()),
+         "seconds": round(time.perf_counter() - t0, 3)})
+    per_request = fsd_serve(model, requests, wrappers)
+    stats = fsd_check_kernels(model, requests[0][1])
+    fsd_clustering_alternatives(cfg)
+    del model, requests
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    model = build_fsd(cfg, seed=0, device="cuda")
+    opt = make_optimizer(model, base_lr=1e-4, total_steps=100, lr_mult_rules=FSD_LR_RULES)
+    pb, gt = fsd_scene(0, cfg)
+    batch = Batch(pb, None, gt, None)
+    train_launches, _ = train(model, opt, batch, wrappers, FSD_MUST_TRAIN, "fsd_train",
+                              FSD_HELD_LOSSES)
+    train_stats = check_train_kernels(model, opt, batch, TRAIN_WARMUP + TRAIN_STEPS,
+                                      "fsd_train_kernel_calls")
+    stats["dw_per_tap"] = train_stats["dw_per_tap"]
+    stats["gather_conv"]["train_backward"] = train_stats["gather_conv_bwd"]
+    log({"phase": "fsd_train_seconds", "seconds": round(time.perf_counter() - t1, 3)})
+    with tempfile.TemporaryDirectory() as workdir:
+        sharded = ddp_world1(model, opt, batch, wrappers, TRAIN_WARMUP + TRAIN_STEPS + 1,
+                             workdir, "fsd_ddp_world1")
+        del model, opt, batch
+        torch.cuda.empty_cache()
+        fsd_two_ranks(workdir)
+    log({"phase": "fsd", "seconds": round(time.perf_counter() - t0, 3)})
+    return dict(stats=stats, per_request=per_request,
+                train_per_step={k: v / TRAIN_STEPS for k, v in train_launches.items()},
+                sharded_per_step=sharded)
+
+
 KERNEL_INFO = {
     "gather_conv": ("fullysparsefusion_tpu_torch/csrc/gather_conv.cu",
                     "fullysparsefusion_tpu/ops/pallas_kernels.py:366"),
@@ -1279,6 +1706,7 @@ def main() -> int:
     build_kernels()
     small_reference_check()
     small_train_reference_check()
+    small_fsd_reference_check()
 
     cfg = bench_config()
     t0 = time.perf_counter()
@@ -1318,6 +1746,7 @@ def main() -> int:
         torch.cuda.empty_cache()
         ddp_two_ranks(workdir)
     train_to_map(wrappers)
+    fsd = fsd_phase(wrappers)
     entries = []
     for name, st in stats.items():
         source, replaces = KERNEL_INFO[name]
@@ -1334,6 +1763,19 @@ def main() -> int:
             bwd = train_stats["gather_conv_bwd"]
             entry["train_backward"] = {"ms": bwd["ms"], "plain_ms": bwd["plain_ms"],
                                        "bound_ms": bwd["bound_ms"], "max_abs_err": bwd["err"]}
+        fst = fsd["stats"][name]
+        entry.update(fsd_launches_per_request=fsd["per_request"][name],
+                     fsd_train_launches_per_step=fsd["train_per_step"][name],
+                     fsd_sharded_launches_per_step=fsd["sharded_per_step"][name],
+                     fsd={k: fst[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                              "bound_by") if k in fst})
+        if name == "gather_conv":
+            bwd = fst["train_backward"]
+            entry["fsd"]["train_backward"] = {"ms": bwd["ms"], "plain_ms": bwd["plain_ms"],
+                                              "bound_ms": bwd["bound_ms"],
+                                              "max_abs_err": bwd["err"]}
+        if name == "nms_keep":
+            entry["fsd"]["per_task"] = fst["per_task"]
         entries.append(entry)
     log({"phase": "total", "seconds": round(time.perf_counter() - t_start, 3)})
     log({"kernels": entries})

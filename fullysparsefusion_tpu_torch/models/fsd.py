@@ -1,24 +1,32 @@
-"""LiDAR-query branch (port of ``models/fsd.py::FSDQueryBranch``).
+"""LiDAR-query branch and the LiDAR-only single-stage FSD (port of
+``models/fsd.py``).
 
 Segmentor output → 0.1 m pre-voxelize dedup → ``group_sample`` (softmax
 foreground per class group, voted centers) → per-group clustering (voxelize
-the voted centers, drop near-empty voxels, connected components per sample)
-→ SIR over (group, batch, cluster) segments → cluster head.
+the voted centers, drop near-empty voxels, connected components per sample;
+or, per group, FPS + ball grouping) → SIR over (group, batch, cluster)
+segments → the task-grouped cluster head. :class:`SingleStageFSD` is the
+``VoteSegmentor`` followed by that branch, with the segmentor and per-task
+head losses and the per-task decode.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 from torch import nn
 
 from ..config import FSDConfig
-from ..ops.ccl import connected_components_bev_batched
+from ..ops.ccl import connected_components_bev, connected_components_bev_batched
+from ..ops.fps import ssg_cluster
 from ..ops.segment import SegmentInfo, segment_mean, unique_segments
 from ..ops.voxelize import grid_dims, linearize_coords, voxel_coords, voxelize_points
-from ..utils.containers import PointBatch
+from ..utils.containers import GroundTruth, PointBatch
 from ..utils.gather import masked_gather
-from .heads import SparseClusterHead
+from .heads import (SparseClusterHead, cluster_head_get_bboxes, multi_task_cluster_head_loss,
+                    multi_task_get_bboxes)
+from .layers import bn_form
+from .segmentor import VoteSegmentor, segmentor_loss, segmentor_targets
 from .sir import SIR
 
 
@@ -85,6 +93,45 @@ def _cluster_voxelize_group(centers, batch_idx, valid, group_id: int, cfg: FSDCo
     return seg, ok, vox_centers, vox_nonempty
 
 
+def cluster_one_group(centers, batch_idx, valid, group_id: int, cfg: FSDConfig):
+    """One group's clustering without the per-sample re-slotting: voxelize
+    the voted centers, drop near-empty voxels, connected components over
+    the voxel mean centers (xy closer than the group's ``connected_dists``,
+    same sample), labels back per point. Returns (label [K] i32, -1 where
+    not clustered; point_valid [K])."""
+    vcap = cfg.caps.cluster_voxels_per_group
+    seg, ok, vox_centers, vox_nonempty = _cluster_voxelize_group(
+        centers, batch_idx, valid, group_id, cfg)
+    vox_batch = segment_mean(batch_idx.float(), seg.seg_id, vcap, counts=seg.counts
+                             ).to(torch.int32)
+    labels_vox = connected_components_bev(vox_centers, vox_batch, vox_nonempty,
+                                          cfg.connected_dists[group_id])
+    lab = labels_vox[seg.seg_id.clamp(0, vcap - 1).long()]
+    return torch.where(ok, lab, torch.full_like(lab, -1)).to(torch.int32), ok
+
+
+def hybrid_cluster_one_group(centers, batch_idx, valid, group_id: int, cfg: FSDConfig,
+                             method: str = "ccl", num_fps: int = 256, radius: float = 1.0,
+                             max_batch: int = 8, batch_size: Optional[int] = None):
+    """Per-group clustering by ``method``: "ccl", :func:`cluster_one_group`;
+    "ssg", FPS + ball grouping per sample (samples ``0 .. batch_size - 1``,
+    or ``max_batch`` when no ``batch_size`` is given; points of later
+    samples get no cluster), sample b's labels offset by ``b · num_fps``.
+    Returns (label [K] i32, -1 where not clustered; point_valid [K])."""
+    if method == "ccl":
+        return cluster_one_group(centers, batch_idx, valid, group_id, cfg)
+    if batch_size is not None:
+        max_batch = batch_size
+    own = torch.full_like(batch_idx, -1, dtype=torch.int32)
+    for b in range(max_batch):
+        mine = batch_idx == b
+        lab_b = ssg_cluster(centers, valid & mine, num_fps, radius)
+        own = torch.where(mine, lab_b, own)
+    ok = valid & (batch_idx < max_batch) & (own >= 0)
+    lab = torch.where(ok, own + batch_idx * num_fps, torch.full_like(own, -1)).to(torch.int32)
+    return lab, valid & (lab >= 0)
+
+
 def _per_sample_slots(seg: SegmentInfo, batch_size: int, cells: int, vps: int):
     """Each sample's voxels are one contiguous run of the ascending-key slot
     table; re-slot them into ``batch_size`` runs of ``vps`` slots. Returns
@@ -139,14 +186,12 @@ class FSDQueryBranch(nn.Module):
 
     def __init__(self, cfg: FSDConfig):
         super().__init__()
-        if len(cfg.task_tuple()) != 1:
-            raise NotImplementedError("only single-task cluster heads are ported")
         self.cfg = cfg
         seg = cfg.segmentor
         feat_dim = (seg.num_classes + 1) * 4 + seg.unet_output_channels + 3
         self.backbone = SIR(seg.point_dim, feat_dim, cfg.sir_num_blocks, cfg.sir_feat_channels,
                             cfg.sir_rel_mlp_hidden, cfg.sir_xyz_normalizer)
-        self.bbox_head = SparseClusterHead(cfg.head, cfg.num_classes)
+        self.bbox_head = SparseClusterHead(cfg.head, cfg.task_tuple(), cfg.class_names)
 
     def extract_foreground(self, pb: PointBatch, seg_out, batch_size: int, thresh_buffer=0.0):
         c = self.cfg
@@ -201,14 +246,74 @@ class FSDQueryBranch(nn.Module):
         f_cluster = fg.points[:, :3] - cluster_xyz[sid]
         _, cluster_feats = self.backbone(fg.points, fg.feats, f_cluster, cseg, fg.valid)
         outs = self.bbox_head(cluster_feats, cluster_valid)
-        return dict(
+        result = dict(
             obj_feat=cluster_feats,
             cluster_xyz=cluster_xyz,
             cluster_batch=cluster_batch,
             cluster_group=cluster_group,
             cluster_valid=cluster_valid,
-            cls_logits=outs["cls_logits"],
-            reg_preds=outs["reg_preds"],
+            cls_logits_tasks=outs["cls_logits_tasks"],
+            reg_preds_tasks=outs["reg_preds_tasks"],
             num_clusters=cluster_valid.sum(dtype=torch.int32),
             num_fg_points=fg.valid.sum(dtype=torch.int32),
         )
+        if len(self.cfg.task_tuple()) == 1:
+            # the one task's tensors, which FSF's fusion reads
+            result["cls_logits"] = outs["cls_logits"]
+            result["reg_preds"] = outs["reg_preds"]
+        return result
+
+
+class SingleStageFSD(nn.Module):
+    """LiDAR-only fully sparse detector: ``VoteSegmentor`` → clustering +
+    SIR + the task-grouped cluster head."""
+
+    def __init__(self, cfg: FSDConfig):
+        super().__init__()
+        self.cfg = cfg
+        self.segmentor = VoteSegmentor(cfg.segmentor, cfg.caps)
+        self.query_branch = FSDQueryBranch(cfg)
+
+    def forward(self, pb: PointBatch, batch_size: int, gt: Optional[GroundTruth] = None,
+                train: Optional[bool] = None, thresh_buffer=0.0, detection_weight=1.0):
+        """The JAX package's ``SingleStageFSD.__call__``. ``train`` picks the
+        BN form for this call (None: the module's mode); with ``gt`` the
+        result holds ``losses``: the segmentor's, and the head's per task
+        (``task{t}_`` keys when there are several) with every ``loss`` term
+        scaled by ``detection_weight``. ``thresh_buffer`` raises the
+        foreground thresholds. Serving calls it under
+        ``torch.inference_mode()``."""
+        c = self.cfg
+        with bn_form(self, train):
+            seg_out = self.segmentor(pb, batch_size)
+            result = self.query_branch(pb, seg_out, batch_size, thresh_buffer)
+            result["seg_out"] = seg_out
+            if gt is not None:
+                losses = segmentor_loss(seg_out, *segmentor_targets(pb, gt, c.num_classes),
+                                        c.segmentor)
+                det = multi_task_cluster_head_loss(
+                    result["cls_logits_tasks"], result["reg_preds_tasks"],
+                    result["cluster_xyz"], result["cluster_batch"], result["cluster_valid"],
+                    gt, c.head, c.task_tuple(), c.class_names)
+                # every loss term of every task (the JAX package scales only
+                # keys that start with "loss", which misses the task{t}_ ones)
+                for k in det:
+                    if "loss" in k:
+                        det[k] = det[k] * detection_weight
+                losses.update(det)
+                result["losses"] = losses
+        return result
+
+    @torch.no_grad()
+    def get_bboxes(self, result, batch_size: int):
+        """Decode + rotated NMS: [B, max_num] for one task, else per task
+        (one K3 launch each) concatenated to [B, T · max_num]."""
+        c = self.cfg
+        if len(c.task_tuple()) == 1:
+            return cluster_head_get_bboxes(
+                result["cls_logits"], result["reg_preds"], result["cluster_xyz"],
+                result["cluster_batch"], result["cluster_valid"], batch_size, c.head)
+        return multi_task_get_bboxes(
+            result["cls_logits_tasks"], result["reg_preds_tasks"], result["cluster_xyz"],
+            result["cluster_batch"], result["cluster_valid"], batch_size, c.head,
+            c.task_tuple(), c.class_names)

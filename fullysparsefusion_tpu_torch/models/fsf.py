@@ -14,7 +14,6 @@ into the cameras uses those.
 """
 from __future__ import annotations
 
-import contextlib
 from typing import Dict, Optional
 
 import torch
@@ -27,7 +26,7 @@ from ..utils.containers import GroundTruth, PointBatch
 from .camera import CameraData, FrustumBranch, gather_point_instances, per_point_class_scores
 from .fsd import FSDQueryBranch
 from .heads import SparseClusterHead, cluster_head_get_bboxes, cluster_head_loss
-from .layers import MLP, LayerNorm, get_activation
+from .layers import MLP, LayerNorm, bn_form, get_activation
 from .roi import FullySparseBboxHead, extract_roi_points_grid
 from .segmentor import SegmentorCore, VoteSegHead, segmentor_loss, segmentor_targets
 
@@ -74,7 +73,7 @@ class FSF(nn.Module):
             sir_rel_mlp_hidden=f.sir_rel_mlp_hidden, sir_xyz_normalizer=f.sir_xyz_normalizer,
             encode_2d_dims=c.encode_2d_dims, num_classes=f.num_classes, overlap_k=c.overlap_k,
             frustum_points=f.caps.frustum_points, frustum_objects=f.caps.frustum_objects)
-        self.frustum_head = SparseClusterHead(c.frustum_head, f.num_classes)
+        self.frustum_head = SparseClusterHead(c.frustum_head, (f.class_names,), f.class_names)
         self.fsd_branch = FSDQueryBranch(f)
         self.combine_frustum_mlp = MLP(self.frustum.out_dim, (c.embed_dims,), norm="ln", act="gelu")
         self.combine_fsd_mlp = MLP(self.fsd_branch.backbone.out_dim, (c.embed_dims,),
@@ -93,7 +92,8 @@ class FSF(nn.Module):
                                                        norm="ln", act="gelu"))
             setattr(self, f"out_proj_{i}", MLP(c.embed_dims, (c.embed_dims, c.embed_dims),
                                                norm="ln", act="gelu", is_head=True))
-            setattr(self, f"refined_head_{i}", SparseClusterHead(c.refined_head, f.num_classes))
+            setattr(self, f"refined_head_{i}", SparseClusterHead(c.refined_head, (f.class_names,),
+                                                                 f.class_names))
         self.coder = BasePointBBoxCoder(f.head.code_size)
 
     def forward(self, pb: PointBatch, cam: CameraData, batch_size: int,
@@ -104,7 +104,7 @@ class FSF(nn.Module):
         ``losses``, the detection terms scaled by ``detection_weight``;
         ``thresh_buffer`` raises the foreground thresholds of the LiDAR
         branch. Serving calls it under ``torch.inference_mode()``."""
-        with self._mode(train):
+        with bn_form(self, train):
             result = self._forward(pb, cam, batch_size, thresh_buffer)
             if gt is not None:
                 pb_inner = PointBatch(points=pb.points[:, :-3], batch_idx=pb.batch_idx,
@@ -115,16 +115,6 @@ class FSF(nn.Module):
                         losses[k] = losses[k] * detection_weight
                 result["losses"] = losses
         return result
-
-    @contextlib.contextmanager
-    def _mode(self, train: Optional[bool]):
-        was = self.training
-        if train is not None:
-            self.train(train)
-        try:
-            yield
-        finally:
-            self.train(was)
 
     def _forward(self, pb: PointBatch, cam: CameraData, batch_size: int, thresh_buffer):
         c = self.cfg

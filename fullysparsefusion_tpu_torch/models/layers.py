@@ -38,6 +38,19 @@ def bn_group(group: Optional["dist.ProcessGroup"]):
         _BN_GROUP.reset(tok)
 
 
+@contextlib.contextmanager
+def bn_form(module: nn.Module, train: Optional[bool]):
+    """``module`` in train (``True``) or eval (``False``) mode inside the
+    block, back to its mode after; ``None`` leaves it as it is."""
+    was = module.training
+    if train is not None:
+        module.train(train)
+    try:
+        yield
+    finally:
+        module.train(was)
+
+
 def mesh_mean(x: torch.Tensor) -> torch.Tensor:
     """Mean of ``x`` over the active group's ranks (identity outside
     :func:`bn_group`). Applied to detached counts, so no gradient: with the
@@ -68,10 +81,14 @@ class _AllReduceSum(torch.autograd.Function):
 
 
 def get_activation(name: str):
+    """The JAX package's activation table; an unknown name raises KeyError."""
     return {
         "relu": F.relu,
         # flax's gelu is the tanh approximation
         "gelu": partial(F.gelu, approximate="tanh"),
+        "silu": F.silu,
+        "tanh": torch.tanh,
+        "identity": lambda x: x,
     }[name]
 
 

@@ -1,7 +1,8 @@
 """VoteSegmentor (port of ``models/segmentor.py``): voxelize → VFE → sparse
 UNet → voxel-to-point neck (``SegmentorCore``), then the per-point head
-emitting (C+1)-way logits and sqrt-encoded center votes (``VoteSegHead``);
-the per-point targets from GT boxes and the segmentation + vote loss."""
+emitting (C+1)-way logits and sqrt-encoded center votes (``VoteSegHead``),
+the two together as SingleStageFSD's ``VoteSegmentor``; the per-point
+targets from GT boxes and the segmentation + vote loss."""
 from __future__ import annotations
 
 import torch
@@ -88,6 +89,19 @@ class VoteSegHead(nn.Module):
             offsets=decode_vote_targets(vote_preds),
             valid=valid,
         )
+
+
+class VoteSegmentor(nn.Module):
+    """``SegmentorCore`` then ``VoteSegHead``, under flax's compact names."""
+
+    def __init__(self, cfg: VoteSegmentorConfig, caps: Capacities):
+        super().__init__()
+        self.SegmentorCore_0 = SegmentorCore(cfg, caps)
+        self.VoteSegHead_0 = VoteSegHead(cfg, self.SegmentorCore_0.feat_dim)
+
+    def forward(self, pb: PointBatch, batch_size: int):
+        seg_feats, pt_valid = self.SegmentorCore_0(pb, batch_size)
+        return self.VoteSegHead_0(seg_feats, pt_valid)
 
 
 def segmentor_targets(pb: PointBatch, gt: GroundTruth, num_classes: int):

@@ -96,3 +96,17 @@ def connected_components_bev_batched(xy: torch.Tensor, batch_idx: torch.Tensor,
     rank = torch.cumsum(is_root, dim=1) - is_root.long()
     labels = torch.gather(rank, 1, roots.clamp(min=0))
     return torch.where(valid, labels, -1).to(torch.int32)
+
+
+def connected_components_bev(xy: torch.Tensor, batch_idx: torch.Tensor, valid: torch.Tensor,
+                             dist: float) -> torch.Tensor:
+    """One problem: compact component ids [N] i32 (-1 invalid) of the graph
+    "xy distance < ``dist``, same batch id, both valid", in ascending order
+    of each component's minimum node index. ``xy`` [N, 2+] (extra columns
+    ignored); the coordinates are scaled by ``1 / dist`` and run through
+    :func:`connected_components_bev_batched` as one problem of K2. Exact for
+    any component diameter."""
+    batch = torch.where(valid, batch_idx.to(torch.int32), torch.zeros_like(batch_idx,
+                                                                         dtype=torch.int32))
+    return connected_components_bev_batched((xy[:, :2] / dist)[None], batch[None],
+                                            valid[None])[0]

@@ -133,6 +133,25 @@ def boxes_iou_bev(boxes1: torch.Tensor, boxes2: torch.Tensor) -> torch.Tensor:
     return inter / union.clamp(min=1e-8)
 
 
+def boxes_iou_3d(boxes1: torch.Tensor, boxes2: torch.Tensor) -> torch.Tensor:
+    """3D IoU matrix [N, M]: the rotated BEV intersection times the height
+    overlap, over the union of the volumes."""
+    c1 = _ensure_ccw(box_corners_bev(boxes1))
+    c2 = _ensure_ccw(box_corners_bev(boxes2))
+    n, m = boxes1.shape[0], boxes2.shape[0]
+    inter_bev = rotated_rect_intersection_area(c1[:, None].expand(n, m, 4, 2),
+                                               c2[None, :].expand(n, m, 4, 2))
+    z1lo, z1hi = boxes1[:, 2], boxes1[:, 2] + boxes1[:, 5]
+    z2lo, z2hi = boxes2[:, 2], boxes2[:, 2] + boxes2[:, 5]
+    zov = (torch.minimum(z1hi[:, None], z2hi[None, :])
+           - torch.maximum(z1lo[:, None], z2lo[None, :])).clamp(min=0.0)
+    inter = inter_bev * zov
+    v1 = boxes1[:, 3] * boxes1[:, 4] * boxes1[:, 5]
+    v2 = boxes2[:, 3] * boxes2[:, 4] * boxes2[:, 5]
+    union = v1[:, None] + v2[None, :] - inter
+    return inter / union.clamp(min=1e-8)
+
+
 def points_box_assignment(points: torch.Tensor, boxes: torch.Tensor,
                           boxes_valid: torch.Tensor) -> torch.Tensor:
     """Per-point index of the lowest-index valid box containing it, -1 if none."""

@@ -21,6 +21,7 @@ import torch.distributed as dist
 from torch import nn
 
 from ..models.camera import CameraData
+from ..models.fsd import SingleStageFSD
 from ..models.layers import bn_group
 from ..train.hooks import RuntimeSchedule
 from ..utils.containers import GroundTruth, PointBatch
@@ -95,13 +96,25 @@ def clip_grad_global_norm_(params, max_norm: float) -> torch.Tensor:
 
 
 class Batch(NamedTuple):
-    """One training batch: points (with the no-aug xyz channels), camera
-    data, the augmented and the no-aug ground truth."""
+    """One training batch: points, camera data, the augmented and the no-aug
+    ground truth. FSF's points carry the no-aug xyz channels; a LiDAR-only
+    ``SingleStageFSD`` takes no camera data and no no-aug GT (None)."""
 
     pb: PointBatch
-    cam: CameraData
+    cam: Optional[CameraData]
     gt: GroundTruth
-    no_aug_gt: GroundTruth
+    no_aug_gt: Optional[GroundTruth]
+
+
+def fsf_forward(model: nn.Module, batch: Batch, **kw):
+    """``FSF`` on ``batch`` (the JAX package's ``fsf_forward_fn``)."""
+    return model(batch.pb, batch.cam, batch.gt.boxes.shape[0], batch.gt, batch.no_aug_gt, **kw)
+
+
+def fsd_forward(model: nn.Module, batch: Batch, **kw):
+    """``SingleStageFSD`` on ``batch``'s points and GT (the JAX package's
+    ``fsd_forward_fn``)."""
+    return model(batch.pb, batch.gt.boxes.shape[0], batch.gt, **kw)
 
 
 def optimizer_step(opt: torch.optim.Optimizer, step: int) -> torch.Tensor:
@@ -145,7 +158,8 @@ def sharded_train_step(model: nn.Module, opt: torch.optim.Optimizer, sched: Runt
                        batch: Batch, step: int, group=None,
                        mark: Optional[Callable[[str], None]] = None):
     """One data-parallel step over the ranks of ``group``, each with its own
-    ``batch``: the train-mode forward with losses under
+    ``batch``: the train-mode forward with losses (:func:`fsd_forward` for a
+    ``SingleStageFSD``, :func:`fsf_forward` otherwise) under
     ``layers.bn_group(group)`` (SyncBN statistics, loss normalizers averaged
     over the ranks), the backward of this rank's :func:`total_loss` (the
     BN all-reduces carry every rank's cotangents into it), each gradient
@@ -162,10 +176,10 @@ def sharded_train_step(model: nn.Module, opt: torch.optim.Optimizer, sched: Runt
     mark = mark or (lambda phase: None)
     model.train()
     opt.zero_grad(set_to_none=True)
+    forward = fsd_forward if isinstance(model, SingleStageFSD) else fsf_forward
     with bn_group(group):
-        out = model(batch.pb, batch.cam, batch.gt.boxes.shape[0], batch.gt, batch.no_aug_gt,
-                    thresh_buffer=sched.threshold_buffer(step),
-                    detection_weight=1.0 if sched.enable_detection(step) else 0.0)
+        out = forward(model, batch, thresh_buffer=sched.threshold_buffer(step),
+                      detection_weight=1.0 if sched.enable_detection(step) else 0.0)
     loss = total_loss(out["losses"])
     mark("forward")
     loss.backward()

@@ -23,7 +23,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from .config import FSFConfig
+from .config import FSDConfig, FSFConfig
+from .models.fsd import SingleStageFSD
 from .models.fsf import FSF, ZeroInitMLP
 from .models.layers import LayerNorm, MaskedBatchNorm
 from .models.sparse_unet import _ConvBlock
@@ -97,14 +98,25 @@ def init_parameters(model: nn.Module, generator: torch.Generator) -> nn.Module:
     return model
 
 
-def build_fsf(cfg: FSFConfig, seed: int = 0, device="cuda",
-              jax_variables: Optional[Mapping] = None) -> FSF:
-    """An ``FSF`` in eval mode on ``device``, with weights from
-    ``torch.Generator().manual_seed(seed)`` or, when given, the JAX
-    package's variables (loaded with ``strict=True``)."""
-    model = FSF(cfg)
+def _build(model: nn.Module, seed: int, device, jax_variables: Optional[Mapping]):
     if jax_variables is None:
         init_parameters(model, torch.Generator().manual_seed(seed))
     else:
         model.load_state_dict(from_jax_variables(jax_variables), strict=True)
     return model.to(device).eval()
+
+
+def build_fsf(cfg: FSFConfig, seed: int = 0, device="cuda",
+              jax_variables: Optional[Mapping] = None) -> FSF:
+    """An ``FSF`` in eval mode on ``device``, with weights from
+    ``torch.Generator().manual_seed(seed)`` or, when given, the JAX
+    package's variables (loaded with ``strict=True``)."""
+    return _build(FSF(cfg), seed, device, jax_variables)
+
+
+def build_fsd(cfg: FSDConfig, seed: int = 0, device="cuda",
+              jax_variables: Optional[Mapping] = None) -> SingleStageFSD:
+    """A LiDAR-only ``SingleStageFSD`` in eval mode on ``device``, with
+    weights from ``torch.Generator().manual_seed(seed)`` or, when given, the
+    JAX package's variables (loaded with ``strict=True``)."""
+    return _build(SingleStageFSD(cfg), seed, device, jax_variables)

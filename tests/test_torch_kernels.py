@@ -317,6 +317,24 @@ def test_nms_kernel_matches_plain(cuda):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("c", [1, 2])
+def test_nms_kernel_per_task_classes(cuda, c):
+    """A multi-task decode's calls: one per task of one or two classes over
+    the 1,024 clusters, so one or two warps scan every row."""
+    rng = np.random.default_rng(c)
+    n = 1024
+    boxes = t(_boxes(rng, n, extent=20.0)).to(cuda)
+    iou = geometry.boxes_iou_bev(boxes, boxes).contiguous()
+    scores = t(rng.random((c, n)).astype(np.float32)).to(cuda)
+    valid = t(rng.random((c, n)) > 0.2).to(cuda)
+    order, vs = nms.class_orders(scores, valid)
+    for thr in (0.1, 0.25, 0.5):
+        got = nms.nms_keep(iou, order, vs.contiguous(), thr)
+        assert torch.equal(got.cpu(), nms.nms_keep_plain(iou, order, vs, thr).cpu())
+        assert 0 < int(got.sum()) < int(vs.sum())
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("n,c,ties,invalid_classes", [(1000, 3, True, (1,)), (77, 2, False, (0, 1)),
                                                      (1280, 10, True, ()), (1, 1, False, ())])
 def test_nms_kernel_edge_cases(cuda, n, c, ties, invalid_classes):

@@ -1,17 +1,19 @@
 #!/usr/bin/env python3
 """Where one request's time goes in the PyTorch port, on one NVIDIA GPU.
 
-    python3 tools/profile_torch_request.py [--requests 3]
+    python3 tools/profile_torch_request.py [--requests 3] [--model fsf|fsd]
 
-Builds the kernels and the full-width FSF of ``chip_smoke.py`` (random
-weights, seed 0) on its bench-scale scene (seed 0), warms up, then:
+Builds the kernels and the full-width FSF of ``chip_smoke.py`` (``--model
+fsd``: its six-task single-stage FSD) with random weights (seed 0) on its
+bench-scale scene (seed 0), warms up, then:
 
-1. spans: CUDA events around every top-level submodule of ``FSF`` and around
-   the functions the forward calls outside them (mask lookup, RoI pooling,
-   foreground extraction, ``get_bboxes``), averaged over ``--requests``
-   requests. Spans are stream time between the two events, idle gaps
-   included, so they add up to the request's time; nested spans are listed
-   with their parent.
+1. spans: CUDA events around every top-level submodule and around the
+   functions the forward calls outside them (FSF: mask lookup, RoI pooling,
+   foreground extraction, ``get_bboxes``; FSD: foreground extraction,
+   ``get_bboxes``, and per task its decode + NMS and, inside it, the
+   rotated IoU matrix), averaged over ``--requests`` requests. Spans are
+   stream time between the two events, idle gaps included, so they add up
+   to the request's time; nested spans are listed with their parent.
 2. kernels: ``torch.profiler`` over one request; device time by kernel name
    (top 15) and the device's busy share (the sum of kernel times over the
    request's stream time).
@@ -40,10 +42,12 @@ SPANS_NESTED = {"seg_core": ("DynamicScatterVFE_0", "SparseUNet_0"),
 
 
 class Spans:
-    """Stream time of named spans, from CUDA events recorded at their ends."""
+    """Stream time of named spans, from CUDA events recorded at their ends;
+    a name that recurs adds up."""
 
     def __init__(self):
         self.open = {}
+        self.done = []
         self.ms = defaultdict(float)
 
     def start(self, name):
@@ -54,13 +58,13 @@ class Spans:
     def stop(self, name):
         ev = torch.cuda.Event(enable_timing=True)
         ev.record()
-        self.open[name] = (self.open[name], ev)
+        self.done.append((name, self.open.pop(name), ev))
 
     def collect(self):
         torch.cuda.synchronize()
-        for name, (a, b) in self.open.items():
+        for name, a, b in self.done:
             self.ms[name] += a.elapsed_time(b)
-        self.open = {}
+        self.done = []
 
 
 def hook_module(mod, name, spans):
@@ -83,44 +87,20 @@ def wrap(owner, attr, name, spans):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--requests", type=int, default=3)
+    ap.add_argument("--model", choices=("fsf", "fsd"), default="fsf")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_request: no CUDA device", file=sys.stderr)
         return 1
-    import chip_smoke
     from fullysparsefusion_tpu_torch import kernels
-    from fullysparsefusion_tpu_torch.models import fsf as fsf_mod
-    from fullysparsefusion_tpu_torch.weights import build_fsf
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     kernels.build_all()
-    cfg = chip_smoke.bench_config()
-    model = build_fsf(cfg, seed=0, device="cuda")
-    pb, cam = chip_smoke.bench_request(0, cfg)
-
-    def request():
-        return model.get_bboxes(model(pb, cam, 1), 1)
-
-    for _ in range(2):
-        request()
-    torch.cuda.synchronize()
-
-    spans = Spans()
-    for name in SPANS_TOP:
-        hook_module(getattr(model, name), name, spans)
-        for sub in SPANS_NESTED.get(name, ()):
-            hook_module(getattr(getattr(model, name), sub), f"{name}.{sub}", spans)
-    for i in range(cfg.num_refine_stages):
-        for part in ("refine_img_mlp", "refine_sir", "lidar_img_mlp", "position_encoder",
-                     "out_proj", "refined_head"):
-            hook_module(getattr(model, f"{part}_{i}"), f"refine.{part}_{i}", spans)
-    wrap(fsf_mod, "gather_point_instances", "mask_lookup", spans)
-    wrap(fsf_mod, "extract_roi_points_grid", "refine.roi_grid_pooling", spans)
-    wrap(model.fsd_branch, "extract_foreground", "fsd_branch.extract_foreground", spans)
-    wrap(model, "get_bboxes", "get_bboxes", spans)
-    wrap(model, "forward", "forward", spans)
-
+    if args.model == "fsd":
+        request, spans = fsd_request_spans()
+    else:
+        request, spans = fsf_request_spans()
     total = 0.0
     for _ in range(args.requests):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -130,7 +110,8 @@ def main() -> int:
         spans.collect()
         total += start.elapsed_time(end)
     n = args.requests
-    print(json.dumps({"phase": "spans", "requests": n, "request_ms": round(total / n, 3),
+    print(json.dumps({"phase": "spans", "model": args.model, "requests": n,
+                      "request_ms": round(total / n, 3),
                       "ms": {k: round(v / n, 3) for k, v in
                              sorted(spans.ms.items(), key=lambda kv: -kv[1])}}), flush=True)
 
@@ -151,7 +132,7 @@ def main() -> int:
             by_kernel[ev.name][1] += 1
     busy = sum(v[0] for v in by_kernel.values())
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:15]
-    print(json.dumps({"phase": "kernels", "request_ms": round(wall_ms, 3),
+    print(json.dumps({"phase": "kernels", "model": args.model, "request_ms": round(wall_ms, 3),
                       "device_busy_ms": round(busy, 3),
                       "device_busy_share": round(busy / wall_ms, 4) if wall_ms else None,
                       "kernel_launches": sum(v[1] for v in by_kernel.values()),
@@ -159,6 +140,89 @@ def main() -> int:
                               for k, v in top]}), flush=True)
     print(json.dumps(plan_glue(request)), flush=True)
     return 0
+
+
+def warm(request):
+    for _ in range(2):
+        request()
+    torch.cuda.synchronize()
+
+
+def fsd_request_spans():
+    """The six-task FSD's request and its spans: the segmentor's parts, the
+    LiDAR branch's, and the decode per task with its IoU matrix."""
+    import chip_smoke
+    from fullysparsefusion_tpu_torch.models import heads
+    from fullysparsefusion_tpu_torch.ops import nms
+    from fullysparsefusion_tpu_torch.weights import build_fsd
+
+    cfg = chip_smoke.fsd_config()
+    model = build_fsd(cfg, seed=0, device="cuda")
+    pb, _ = chip_smoke.fsd_scene(0, cfg)
+
+    def request():
+        with torch.inference_mode():
+            return model.get_bboxes(model(pb, 1), 1)
+
+    warm(request)
+    spans = Spans()
+    seg, branch = model.segmentor, model.query_branch
+    hook_module(seg.SegmentorCore_0, "segmentor.core", spans)
+    for sub in ("DynamicScatterVFE_0", "SparseUNet_0"):
+        hook_module(getattr(seg.SegmentorCore_0, sub), f"segmentor.core.{sub}", spans)
+    hook_module(seg.VoteSegHead_0, "segmentor.head", spans)
+    hook_module(branch, "query_branch", spans)
+    for sub in ("backbone", "bbox_head"):
+        hook_module(getattr(branch, sub), f"query_branch.{sub}", spans)
+    wrap(branch, "extract_foreground", "query_branch.extract_foreground", spans)
+    wrap(model, "get_bboxes", "get_bboxes", spans)
+    wrap(model, "forward", "forward", spans)
+    tasks = len(cfg.task_tuple())
+    for owner, attr, name in ((heads, "cluster_head_get_bboxes", "get_bboxes.task"),
+                              (nms, "boxes_iou_bev", "get_bboxes.iou_task")):
+        fn, calls = getattr(owner, attr), [0]
+
+        def per_task(*a, _fn=fn, _calls=calls, _name=name, **k):
+            label = f"{_name}{_calls[0] % tasks}"
+            _calls[0] += 1
+            spans.start(label)
+            out = _fn(*a, **k)
+            spans.stop(label)
+            return out
+
+        setattr(owner, attr, per_task)
+    return request, spans
+
+
+def fsf_request_spans():
+    """FSF's request and its spans."""
+    import chip_smoke
+    from fullysparsefusion_tpu_torch.models import fsf as fsf_mod
+    from fullysparsefusion_tpu_torch.weights import build_fsf
+
+    cfg = chip_smoke.bench_config()
+    model = build_fsf(cfg, seed=0, device="cuda")
+    pb, cam = chip_smoke.bench_request(0, cfg)
+
+    def request():
+        return model.get_bboxes(model(pb, cam, 1), 1)
+
+    warm(request)
+    spans = Spans()
+    for name in SPANS_TOP:
+        hook_module(getattr(model, name), name, spans)
+        for sub in SPANS_NESTED.get(name, ()):
+            hook_module(getattr(getattr(model, name), sub), f"{name}.{sub}", spans)
+    for i in range(cfg.num_refine_stages):
+        for part in ("refine_img_mlp", "refine_sir", "lidar_img_mlp", "position_encoder",
+                     "out_proj", "refined_head"):
+            hook_module(getattr(model, f"{part}_{i}"), f"refine.{part}_{i}", spans)
+    wrap(fsf_mod, "gather_point_instances", "mask_lookup", spans)
+    wrap(fsf_mod, "extract_roi_points_grid", "refine.roi_grid_pooling", spans)
+    wrap(model.fsd_branch, "extract_foreground", "fsd_branch.extract_foreground", spans)
+    wrap(model, "get_bboxes", "get_bboxes", spans)
+    wrap(model, "forward", "forward", spans)
+    return request, spans
 
 
 def plan_glue(request):
@@ -175,6 +239,8 @@ def plan_glue(request):
         calls.append((rows.clone(), n_src))
         return orig(rows, n_src)
 
+    # plan_rulebook counts its calls on the module attribute of its name
+    recorder.calls = 0
     sparse_conv.plan_rulebook = sparse_unet.plan_rulebook = recorder
     try:
         request()
