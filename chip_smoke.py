@@ -72,6 +72,22 @@ Phases, each of which ends the script with a non-zero exit on failure:
    BN, every task's ``num_pos`` equal). At the start, beside the two small
    checks, the tiny six-task FSD with the IoU branch on runs forward,
    losses and decode on the GPU and on the CPU from the same weights.
+10. two_stage: the two-stage FSD (``TwoStageFSD``: the one-task FSD's
+   decoded boxes as RoIs, RCNN pooling + refinement, the RCNN decode) at
+   full nuScenes width (random weights from seed 0, the bench capacities
+   and scenes): four requests (the repeat bitwise equal, K2 and K3 once
+   per request; RoIs, pooled pairs and ``dropped`` logged), every K1, K2
+   and K3 call of one held to its plain version and timed; two warm-up and
+   five timed train steps (every loss finite, the segmentor's terms
+   falling, the first stage's head, the segmentor and the ``roi_head``
+   getting a gradient) with the backward kernels held to their plain
+   versions; NCCL at world size 1 bitwise equal to ``train_step``; the
+   tiny two-stage FSD on two gloo ranks against one process (eval-form
+   BN). At the start, the tiny two-stage FSD runs forward, losses and
+   decode on the GPU and on the CPU from the same weights;
+11. sst: the SST backbone at its defaults on the seed-0 bench scene's
+   pillars, forward and backward timed, its windows and dropped tokens
+   logged, the padding rows 0, the card's output against the CPU's.
 
 The last lines are a ``{"kernels": [...]}`` JSON object, the card's name and
 power limit from ``nvidia-smi``, and ``{"ok": true, "device": {...}}``.
@@ -985,10 +1001,11 @@ T2M_STEPS, T2M_LR, T2M_SEED, T2M_CLASSES, T2M_BATCH = 60, 1e-3, 7, 3, 2
 
 
 def ddp_world1(model, opt, batch, wrappers, step: int, workdir: str,
-               phase="ddp_world1") -> dict:
+               phase="ddp_world1", exact: bool = False) -> dict:
     """Full width: ``train_step`` twice from one state (the card's step
     reproduced or not), then ``sharded_train_step`` under an NCCL group of
-    world size 1 from the same state, its losses held to ``train_step``'s;
+    world size 1 from the same state, its losses held to ``train_step``'s
+    (with ``exact``, its losses and parameters bitwise equal);
     then ``DDP_WORLD1_STEPS`` timed sharded steps (the gradient all-reduce
     by CUDA events) with the kernels' launches counted, and one bare NCCL
     all-reduce of the gradients' bytes. Returns the launches per step."""
@@ -1020,6 +1037,9 @@ def ddp_world1(model, opt, batch, wrappers, step: int, workdir: str,
     if loss_err > DDP_WORLD1_TOL:
         fail(f"{phase}: sharded_train_step's losses differ from train_step's by "
              f"{loss_err:.3g} (tolerance {DDP_WORLD1_TOL})")
+    if exact and (loss_err or param_err):
+        fail(f"{phase}: sharded_train_step is not bitwise train_step's (losses {loss_err:.3g}, "
+             f"parameters {param_err:.3g} apart)")
     spread = diff(first, again)
     del again, sharded
 
@@ -1184,13 +1204,14 @@ def single_process_step(cfg, scenes, det_weight, train_bn):
             {n: p.grad.detach().cpu().numpy() for n, p in model.named_parameters()})
 
 
-def hold_two_ranks(what, r0, r1, ref_losses, ref_grads, exact, kernels, errors) -> dict:
+def hold_two_ranks(what, r0, r1, ref_losses, ref_grads, exact, kernels, errors,
+                   leaf_rtol=DDP_EXACT_LEAF_RTOL) -> dict:
     """Two ranks' results (losses averaged over the ranks, gradients as the
     optimizer gets them, BN buffers, launches) against one process's on
     both scenes: the ranks bitwise equal to each other and each of
     ``kernels`` launched on each; ``exact`` (eval-form BN) holds every
     loss, count (times 2) and gradient to ``DDP_EXACT_RTOL`` /
-    ``DDP_EXACT_LEAF_RTOL``, else tests/test_train.py's DDP-equivalence
+    ``leaf_rtol``, else tests/test_train.py's DDP-equivalence
     tolerances. Appends what misses to ``errors``; returns the report."""
     for part in ("grads", "buffers"):
         for k, v in r0[part].items():
@@ -1222,7 +1243,7 @@ def hold_two_ranks(what, r0, r1, ref_losses, ref_grads, exact, kernels, errors) 
         d = float(np.linalg.norm(got - g))
         rel = d / max(n1, 1e-12) if exact else abs(n2 - n1) / max(n1, 1e-12)
         leaf_worst.append((rel, k))
-        if exact and d > DDP_EXACT_LEAF_RTOL * n1 + 1e-6:
+        if exact and d > leaf_rtol * n1 + 1e-6:
             errors.append(f"{what}: gradient {k} differs by {rel:.3g}")
         if not exact and abs(n2 - n1) > DDP_LEAF_RTOL * n1 + 1e-6:
             errors.append(f"{what}: gradient norm {k} {n2} against {n1}")
@@ -1381,6 +1402,29 @@ def check_close(what: str, name: str, a, b, tol: float) -> float:
     return err.max().item() if err.numel() else 0.0
 
 
+def hold_losses_and_detections(what, l_cpu, l_gpu, d_cpu, d_gpu, report) -> float:
+    """A tiny detector's losses and detections, GPU against CPU: every loss
+    finite and within ``TRAIN_LOSS_TOL`` relative (counts and recalls
+    equal), the detections' validity and labels equal, boxes and scores
+    within ``BF16_CHAIN_TOL`` (added to ``report``). Returns the worst loss
+    error."""
+    worst = 0.0
+    for k, a in l_cpu.items():
+        a, b = float(a), float(l_gpu[k])
+        err = abs(a - b) / max(1.0, abs(a))
+        if not (math.isfinite(a) and math.isfinite(b)) or err > TRAIN_LOSS_TOL or \
+                (("num_pos" in k or "recall" in k) and a != b):
+            fail(f"{what}: {k} {a} on the CPU, {b} on the GPU")
+        worst = max(worst, err)
+    if not torch.equal(d_cpu.valid, d_gpu.valid.cpu()) or \
+            not torch.equal(d_cpu.labels, d_gpu.labels.cpu()):
+        fail(f"{what}: detection validity or labels differ")
+    report["det_boxes"] = check_close(what, "det boxes", d_cpu.boxes, d_gpu.boxes, BF16_CHAIN_TOL)
+    report["det_scores"] = check_close(what, "det scores", d_cpu.scores, d_gpu.scores,
+                                       BF16_CHAIN_TOL)
+    return worst
+
+
 def small_fsd_reference_check(device="cuda"):
     """Tiny six-task FSD with the IoU branch on, forward + losses +
     ``get_bboxes``: GPU (kernels) against CPU (plain versions), same
@@ -1418,20 +1462,7 @@ def small_fsd_reference_check(device="cuda"):
     l_cpu, l_gpu = r_cpu["losses"], r_gpu["losses"]
     if set(l_cpu) != set(l_gpu) or len([k for k in l_cpu if k.startswith("task5_")]) < 5:
         fail(f"{what}: loss keys {sorted(l_gpu)}")
-    worst = 0.0
-    for k, a in l_cpu.items():
-        a, b = float(a), float(l_gpu[k])
-        err = abs(a - b) / max(1.0, abs(a))
-        if not (math.isfinite(a) and math.isfinite(b)) or err > TRAIN_LOSS_TOL or \
-                (("num_pos" in k or "recall" in k) and a != b):
-            fail(f"{what}: {k} {a} on the CPU, {b} on the GPU")
-        worst = max(worst, err)
-    if not torch.equal(d_cpu.valid, d_gpu.valid.cpu()) or \
-            not torch.equal(d_cpu.labels, d_gpu.labels.cpu()):
-        fail(f"{what}: detection validity or labels differ")
-    report["det_boxes"] = check_close(what, "det boxes", d_cpu.boxes, d_gpu.boxes, BF16_CHAIN_TOL)
-    report["det_scores"] = check_close(what, "det scores", d_cpu.scores, d_gpu.scores,
-                                       BF16_CHAIN_TOL)
+    worst = hold_losses_and_detections(what, l_cpu, l_gpu, d_cpu, d_gpu, report)
     n_det, n_clusters = int(d_cpu.valid.sum()), int(r_cpu["num_clusters"])
     if min(n_det, n_clusters) <= 0:
         fail(f"{what}: vacuous scene, {n_det} detections, {n_clusters} clusters")
@@ -1679,6 +1710,329 @@ def fsd_phase(wrappers) -> dict:
                 sharded_per_step=sharded)
 
 
+# -- two-stage FSD (RCNN second stage) and the SST backbone ----------------------
+
+TWO_STAGE_MUST_TRAIN = ("rpn.segmentor", "rpn.query_branch.bbox_head", "roi_head")
+# per-leaf gradient bound of two ranks against one process in eval-form BN:
+# one process at batch 2 sorts K1's rows otherwise, so an f32 sum an ulp
+# apart can round a bf16 UNet activation to its neighbour (2^-8); the RCNN's
+# gradient reaches the UNet through the point features, and three of its
+# BN biases' near-cancelling sums moved 1.7e-3 to 2.3e-3 on the card
+# (fsd_two_ranks' enc2_down.w 2.0e-3, under its 1e-6 absolute floor)
+TWO_STAGE_LEAF_RTOL = BF16_CHAIN_TOL
+
+
+def two_stage_config():
+    """Full-width two-stage FSD: the ``FSDConfig`` defaults (the nuScenes
+    widths, one task of all ten classes, which the RCNN's proposals need)
+    at the bench capacities."""
+    from fullysparsefusion_tpu_torch.config import Capacities, FSDConfig, VoteSegmentorConfig
+
+    seg = VoteSegmentorConfig(unet_stage_capacities=BENCH_STAGE_CAPS)
+    return FSDConfig(tasks=None, caps=Capacities(**BENCH_CAPS), segmentor=seg)
+
+
+def small_two_stage_reference_check(device="cuda"):
+    """Tiny two-stage FSD, eval form, forward + losses + ``get_bboxes``: GPU
+    (kernels) against CPU (plain versions), same weights and scene,
+    ``small_fsd_reference_check``'s tolerances; the proposals' validity and
+    the RCNN's non-empty RoIs equal."""
+    from fullysparsefusion_tpu_torch import synthetic as S
+    from fullysparsefusion_tpu_torch.config import tiny_fsd_config
+    from fullysparsefusion_tpu_torch.weights import build_two_stage_fsd
+
+    t0 = time.perf_counter()
+    cfg = tiny_fsd_config()
+    sc = S.make_scene_arrays(seed=0, n_cap=cfg.caps.points, max_gt=cfg.caps.max_gt)
+    ref_model = build_two_stage_fsd(cfg, seed=0, device="cpu")
+    outs = {}
+    for dev, model in (("cpu", ref_model), (device, copy.deepcopy(ref_model).to(device))):
+        pb, gt = S.to_point_batch(sc, dev), S.to_ground_truth(sc, dev)
+        with torch.inference_mode():
+            res = model(pb, 2, gt)
+            outs[dev] = (res, model.get_bboxes(res, 2))
+    (r_cpu, d_cpu), (r_gpu, d_gpu) = outs["cpu"], outs[device]
+    what = "small two-stage reference"
+    for key in ("roi_valid", "roi_batch"):
+        if not torch.equal(r_cpu[key], r_gpu[key].cpu()):
+            fail(f"{what}: {key} differs")
+    if not torch.equal(r_cpu["rcnn"]["nonempty"], r_gpu["rcnn"]["nonempty"].cpu()):
+        fail(f"{what}: the non-empty RoIs differ")
+    report = {"seg_logits": check_close(what, "seg_logits", r_cpu["seg_out"]["seg_logits"],
+                                        r_gpu["seg_out"]["seg_logits"], BF16_CHAIN_TOL)}
+    for key in ("cls_logits", "reg_preds", "rois"):
+        report[key] = check_close(what, key, r_cpu[key], r_gpu[key], BF16_CHAIN_TOL)
+    for key in ("cls_logits", "reg_preds"):
+        report[f"rcnn_{key}"] = check_close(what, f"rcnn {key}", r_cpu["rcnn"][key],
+                                            r_gpu["rcnn"][key], BF16_CHAIN_TOL)
+    l_cpu, l_gpu = r_cpu["losses"], r_gpu["losses"]
+    if set(l_cpu) != set(l_gpu) or "rcnn_loss_cls" not in l_cpu:
+        fail(f"{what}: loss keys {sorted(l_gpu)}")
+    worst = hold_losses_and_detections(what, l_cpu, l_gpu, d_cpu, d_gpu, report)
+    n_det, n_rois = int(d_cpu.valid.sum()), int(r_cpu["rcnn"]["nonempty"].sum())
+    if min(n_det, n_rois) <= 0:
+        fail(f"{what}: vacuous scene, {n_det} detections, {n_rois} non-empty RoIs")
+    log({"phase": "small_two_stage_reference", "detections": n_det, "nonempty_rois": n_rois,
+         "roi_points": int(r_cpu["rcnn"]["num_roi_points"]),
+         "dropped": int(r_cpu["rcnn"]["dropped"]), "losses": len(l_cpu),
+         "loss_rel_err": float(f"{worst:.3g}"), "tolerance": BF16_CHAIN_TOL,
+         "max_abs_err": {k: float(f"{v:.3g}") for k, v in report.items()},
+         "seconds": round(time.perf_counter() - t0, 3)})
+
+
+def two_stage_serve(model, requests, wrappers) -> dict:
+    """Forward + get_bboxes per request under ``torch.inference_mode()``,
+    each with the launch counters zeroed just before and read just after:
+    K1 and K2 must launch and K3 exactly once (the RCNN decode; the first
+    stage runs no NMS). Returns the mean launches per request."""
+    t0 = time.perf_counter()
+    dets, launches = [], []
+    for seed, pb in requests:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero(wrappers)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t_req = time.perf_counter()
+        start.record()
+        with torch.inference_mode():
+            res = model(pb, 1)
+            det = model.get_bboxes(res, 1)
+        end.record()
+        det = type(det)(*[t.cpu() for t in det])  # the answer reaches the host
+        host_ms = (time.perf_counter() - t_req) * 1e3
+        torch.cuda.synchronize()
+        launches.append(counts(wrappers))
+        for name, t in zip(det._fields, det):
+            if t.is_floating_point() and not torch.isfinite(t).all():
+                fail(f"two-stage request seed {seed}: non-finite {name}")
+        if det.valid.shape != (1, model.rcnn_cfg.max_num):
+            fail(f"two-stage request seed {seed}: detections shape {tuple(det.valid.shape)}")
+        if launches[-1]["nms_keep"] != 1 or launches[-1]["ccl_roots"] != 1 or \
+                launches[-1]["gather_conv"] <= 0:
+            fail(f"two-stage request seed {seed}: launches {launches[-1]}")
+        rcnn = res["rcnn"]
+        log({"phase": "two_stage_request", "seed": seed, "detections": int(det.valid.sum()),
+             "rois": int(res["roi_valid"].sum()), "nonempty_rois": int(rcnn["nonempty"].sum()),
+             "roi_points": int(rcnn["num_roi_points"]), "dropped": int(rcnn["dropped"]),
+             "fg_points": int(res["num_fg_points"]),
+             "gpu_ms": round(start.elapsed_time(end), 3), "host_ms": round(host_ms, 3),
+             "peak_mem_mib": round(torch.cuda.max_memory_allocated() / 2**20, 1),
+             "launches": launches[-1]})
+        dets.append(det)
+    first, again = dets[0], dets[-1]
+    for name, a, b in zip(first._fields, first, again):
+        if not torch.equal(a, b):
+            fail(f"re-run of two-stage request seed 0 changed {name}")
+    per_request = {k: sum(n[k] for n in launches) / len(launches) for k in launches[0]}
+    log({"phase": "two_stage_serve", "requests": len(requests),
+         "launches_per_request": per_request, "seconds": round(time.perf_counter() - t0, 3)})
+    return per_request
+
+
+def two_stage_check_kernels(model, pb) -> dict:
+    """Every K1, K2 and K3 call of one two-stage request held to its plain
+    version (K1 within ``K1_RTOL``, K2 and K3 bitwise) and timed."""
+    t0 = time.perf_counter()
+    calls = capture_request(lambda: model.get_bboxes(model(pb, 1), 1))
+    results = {"gather_conv": replay_gather_conv(calls["gather_conv"], "two_stage_kernel_calls")}
+    (call,) = calls["ccl_roots"]
+    results["ccl_roots"] = replay_ccl_roots(call, "two_stage_kernel_calls")
+    (call,) = calls["nms_keep"]
+    results["nms_keep"] = replay_nms_keep(call, "two_stage_kernel_calls", role="rcnn_decode")
+    del results["nms_keep"]["flop"], results["nms_keep"]["byte"]
+    log({"phase": "two_stage_kernels", "calls": {k: len(v) for k, v in calls.items()},
+         "seconds": round(time.perf_counter() - t0, 3)})
+    return results
+
+
+def two_stage_config_two_ranks(scale: int = 1):
+    """The tiny two-stage config, every UNet conv on the gather path,
+    capacities ample for one scene times ``scale``."""
+    from fullysparsefusion_tpu_torch.config import tiny_fsd_config
+
+    cfg = tiny_fsd_config()
+    seg = dataclasses.replace(cfg.segmentor, unet_dense_min_occupancy=2.0)
+    return dataclasses.replace(cfg, segmentor=seg, caps=ample_caps(cfg.caps, scale))
+
+
+def two_stage_ddp_rank(rank, world, group):
+    """One rank of ``two_stage_two_ranks`` (gloo on the card): the tiny
+    two-stage FSD from the seed-0 weights on this rank's scene, eval-form
+    BN."""
+    from fullysparsefusion_tpu_torch.weights import build_two_stage_fsd
+
+    cfg = two_stage_config_two_ranks()
+    wrappers = kernel_wrappers()
+    model = build_two_stage_fsd(cfg, seed=0, device="cuda")
+    zero(wrappers)
+    losses, grads = fsd_eval_bn_step(model, fsd_batch(ddp_scenes(cfg)[rank][0]), 1, group)
+    return dict(losses=losses, grads=grads, buffers=dict(model.named_buffers()),
+                launches=counts(wrappers))
+
+
+def two_stage_two_ranks(workdir: str) -> None:
+    """Tiny two-stage FSD on two gloo processes on the one card (eval-form
+    BN) against one process at batch 2 with doubled capacities:
+    ``hold_two_ranks``' exact bounds (``rcnn_loss``'s two ``mesh_mean``'d
+    normalizers among them), the ranks bitwise equal, K1, K2 and
+    dw_per_tap launched on each."""
+    from fullysparsefusion_tpu_torch.parallel.launch import spawn_ranks
+    from fullysparsefusion_tpu_torch.weights import build_two_stage_fsd
+
+    t0 = time.perf_counter()
+    r0, r1 = spawn_ranks(two_stage_ddp_rank, 2,
+                         os.path.join(workdir, "gloo_two_stage_two_ranks"), backend="gloo",
+                         device="cuda", timeout=300)
+    scenes = ddp_scenes(two_stage_config_two_ranks())
+    sc = {k: np.concatenate([s[k] for s, _ in scenes]) for k in scenes[0][0]}
+    sc["batch_idx"] = np.concatenate([s["batch_idx"] + i for i, (s, _) in enumerate(scenes)])
+    ref_losses, ref_grads = fsd_eval_bn_step(
+        build_two_stage_fsd(two_stage_config_two_ranks(scale=2), seed=0, device="cuda"),
+        fsd_batch(sc), 2)
+    errors = []
+    report = hold_two_ranks("two_stage_two_ranks", r0, r1, ref_losses, ref_grads, True,
+                            ("gather_conv", "dw_per_tap", "ccl_roots"), errors,
+                            TWO_STAGE_LEAF_RTOL)
+    if "rcnn_loss_cls" not in ref_losses or not ref_losses["rcnn_loss_cls"] > 0:
+        errors.append(f"two_stage_two_ranks: no RCNN class loss, {ref_losses}")
+    log({"phase": "two_stage_two_ranks", "backend": "gloo", "device": "cuda", "world_size": 2,
+         "train_bn": False, **report, "seconds": round(time.perf_counter() - t0, 3)})
+    if errors:
+        fail("; ".join(errors))
+
+
+def two_stage_phase(wrappers) -> dict:
+    """The full-width two-stage FSD: serve four requests, replay the kernels
+    of one, train (two warm-ups, five timed steps, the backward kernels held
+    to their plain versions), NCCL at world size 1 from the trained state
+    (bitwise equal to ``train_step``); then the tiny two-stage FSD on two
+    gloo ranks. Returns the kernel numbers and launches for the kernels
+    line."""
+    from fullysparsefusion_tpu_torch.parallel.train import Batch, make_optimizer
+    from fullysparsefusion_tpu_torch.weights import build_two_stage_fsd
+
+    t0 = time.perf_counter()
+    cfg = two_stage_config()
+    model = build_two_stage_fsd(cfg, seed=0, device="cuda")
+    requests = [(s, fsd_scene(s, cfg)[0]) for s in REQUEST_SEEDS]
+    torch.cuda.synchronize()
+    log({"phase": "two_stage_setup", "parameters": sum(p.numel() for p in model.parameters()),
+         "roi_head_parameters": sum(p.numel() for p in model.roi_head.parameters()),
+         "seconds": round(time.perf_counter() - t0, 3)})
+    per_request = two_stage_serve(model, requests, wrappers)
+    stats = two_stage_check_kernels(model, requests[0][1])
+    del model, requests
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    model = build_two_stage_fsd(cfg, seed=0, device="cuda")
+    opt = make_optimizer(model, base_lr=1e-4, total_steps=100,
+                         lr_mult_rules={"rpn.segmentor.SegmentorCore_0": 0.2})
+    pb, gt = fsd_scene(0, cfg)
+    batch = Batch(pb, None, gt, None)
+    train_launches, _ = train(model, opt, batch, wrappers, TWO_STAGE_MUST_TRAIN,
+                              "two_stage_train", FSD_HELD_LOSSES)
+    train_stats = check_train_kernels(model, opt, batch, TRAIN_WARMUP + TRAIN_STEPS,
+                                      "two_stage_train_kernel_calls")
+    stats["dw_per_tap"] = train_stats["dw_per_tap"]
+    stats["gather_conv"]["train_backward"] = train_stats["gather_conv_bwd"]
+    log({"phase": "two_stage_train_seconds", "seconds": round(time.perf_counter() - t1, 3)})
+    with tempfile.TemporaryDirectory() as workdir:
+        ddp_world1(model, opt, batch, wrappers, TRAIN_WARMUP + TRAIN_STEPS + 1, workdir,
+                   "two_stage_ddp_world1", exact=True)
+        del model, opt, batch
+        torch.cuda.empty_cache()
+        two_stage_two_ranks(workdir)
+    log({"phase": "two_stage", "seconds": round(time.perf_counter() - t0, 3)})
+    return dict(stats=stats, per_request=per_request,
+                train_per_step={k: v / TRAIN_STEPS for k, v in train_launches.items()})
+
+
+# the SST backbone's output on the card against the CPU, relative to its
+# largest magnitude: f32 throughout (no TF32), sums in another order
+SST_TOL = 1e-4
+SST_REPS = 3
+
+
+def sst_inputs(cfg, device="cuda"):
+    """The seed-0 bench scene pillarised to the SST grid (512 x 512 x 1 over
+    the FSD ``point_cloud_range``): each pillar's mean point channels, its
+    (x, y, z) coords, batch ids and validity, capped at the bench's voxel
+    capacity. Returns (feats, coords, batch, valid, points in range)."""
+    from fullysparsefusion_tpu_torch.ops.segment import segment_mean
+    from fullysparsefusion_tpu_torch.ops.voxelize import voxelize_points
+
+    pb, _ = fsd_scene(0, cfg, device)
+    r = cfg.segmentor.point_cloud_range
+    size = ((r[3] - r[0]) / 512, (r[4] - r[1]) / 512, r[5] - r[2])
+    cap = BENCH_CAPS["voxels"]
+    seg, _, batch, coords = voxelize_points(pb.xyz, pb.batch_idx, pb.valid, size, r, cap)
+    feats = segment_mean(pb.points, seg.seg_id, cap, counts=seg.counts)
+    return feats, coords, batch, seg.seg_valid, int(seg.num_segments)
+
+
+def sst_phase() -> None:
+    """``SSTBackbone`` at its defaults (dim 128, 4 blocks, 8 heads, 512 x 512
+    x 1, 16 x 16 x 1 windows, 128 tokens, 1,024 windows; random weights from
+    seed 0) on the bench scene's pillars: forward and backward of Σ out²
+    timed by CUDA events, the windows and dropped tokens of each partition,
+    peak memory; the padding rows exactly 0, the same call on CPU tensors
+    within ``SST_TOL`` of the output's magnitude."""
+    from fullysparsefusion_tpu_torch.models.sst import SSTBackbone
+    from fullysparsefusion_tpu_torch.weights import init_parameters
+
+    t0 = time.perf_counter()
+    feats, coords, batch, valid, pillars = sst_inputs(two_stage_config())
+    cpu_model = init_parameters(SSTBackbone(feats.shape[1]), torch.Generator().manual_seed(0))
+    model = copy.deepcopy(cpu_model).cuda()
+    parts = []
+    for name, part in zip(("regular", "shifted"), model.partitions(coords, batch, valid)):
+        inside = valid & (part.seg.seg_id < model.windows_cap)
+        parts.append({"partition": name, "windows": int(part.seg.num_segments),
+                      "windows_cap": model.windows_cap,
+                      "overflowed_voxels": int((valid & ~inside).sum()),
+                      "dropped_tokens": int((valid & (part.inner_idx >= model.max_tokens)).sum()),
+                      "max_tokens_in_a_window": int(part.tokens_per_win.max())})
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fwd_ms, bwd_ms = [], []
+    for _ in range(1 + SST_REPS):
+        model.zero_grad(set_to_none=True)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        ev[0].record()
+        out = model(feats, coords, batch, valid)
+        ev[1].record()
+        (out ** 2).sum().backward()
+        ev[2].record()
+        torch.cuda.synchronize()
+        fwd_ms.append(ev[0].elapsed_time(ev[1]))
+        bwd_ms.append(ev[1].elapsed_time(ev[2]))
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    out = out.detach()
+    if not torch.isfinite(out).all():
+        fail("sst: non-finite output")
+    if out[~valid].any():
+        fail("sst: a padding row is not 0")
+    grads = [p.grad for p in model.parameters()]
+    if any(g is None or not torch.isfinite(g).all() for g in grads):
+        fail("sst: a parameter has no finite gradient")
+    with torch.no_grad():
+        ref = cpu_model(*(t.cpu() for t in (feats, coords, batch, valid)))
+    err = float((out.cpu() - ref).abs().max())
+    scale = float(ref.abs().max())
+    if not err <= SST_TOL * scale:
+        fail(f"sst: the card's output differs from the CPU's by {err:.3g} (scale {scale:.3g})")
+    log({"phase": "sst", "pillars": pillars, "voxels": int(valid.sum()),
+         "voxel_capacity": int(valid.shape[0]), "partitions": parts,
+         "forward_ms": round(sum(fwd_ms[1:]) / SST_REPS, 3),
+         "backward_ms": round(sum(bwd_ms[1:]) / SST_REPS, 3),
+         "forward_ms_each": [round(v, 3) for v in fwd_ms],
+         "backward_ms_each": [round(v, 3) for v in bwd_ms],
+         "peak_mem_mib": round(peak, 1), "max_abs_err_vs_cpu": err, "output_scale": scale,
+         "tolerance": SST_TOL, "parameters": sum(p.numel() for p in model.parameters()),
+         "seconds": round(time.perf_counter() - t0, 3)})
+
+
 KERNEL_INFO = {
     "gather_conv": ("fullysparsefusion_tpu_torch/csrc/gather_conv.cu",
                     "fullysparsefusion_tpu/ops/pallas_kernels.py:366"),
@@ -1707,6 +2061,7 @@ def main() -> int:
     small_reference_check()
     small_train_reference_check()
     small_fsd_reference_check()
+    small_two_stage_reference_check()
 
     cfg = bench_config()
     t0 = time.perf_counter()
@@ -1747,6 +2102,8 @@ def main() -> int:
         ddp_two_ranks(workdir)
     train_to_map(wrappers)
     fsd = fsd_phase(wrappers)
+    two_stage = two_stage_phase(wrappers)
+    sst_phase()
     entries = []
     for name, st in stats.items():
         source, replaces = KERNEL_INFO[name]
@@ -1776,6 +2133,16 @@ def main() -> int:
                                               "max_abs_err": bwd["err"]}
         if name == "nms_keep":
             entry["fsd"]["per_task"] = fst["per_task"]
+        tst = two_stage["stats"][name]
+        entry.update(two_stage_launches_per_request=two_stage["per_request"][name],
+                     two_stage_train_launches_per_step=two_stage["train_per_step"][name],
+                     two_stage={k: tst[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                                    "bound_by") if k in tst})
+        if name == "gather_conv":
+            bwd = tst["train_backward"]
+            entry["two_stage"]["train_backward"] = {"ms": bwd["ms"], "plain_ms": bwd["plain_ms"],
+                                                    "bound_ms": bwd["bound_ms"],
+                                                    "max_abs_err": bwd["err"]}
         entries.append(entry)
     log({"phase": "total", "seconds": round(time.perf_counter() - t_start, 3)})
     log({"kernels": entries})

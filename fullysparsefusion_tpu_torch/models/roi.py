@@ -1,11 +1,16 @@
-"""RoI point pooling on a BEV cell grid + FullySparseBboxHead (port of
-``models/roi.py``: ``extract_roi_points_grid`` and the bbox head).
+"""RoI point pooling + FullySparseBboxHead (port of ``models/roi.py``).
 
-RoIs rasterize their enlarged BEV footprint onto a coarse cell grid (each
-cell keeps its ``cands_per_cell`` lowest-index covering RoIs); each point
-tests its own cell's candidates exactly and keeps its ``rois_per_point``
-lowest-index containing RoIs. Memberships are compacted to a fixed
-capacity with 13-dim geometry per (point, RoI) pair.
+Each point keeps its ``rois_per_point`` lowest-index containing RoIs
+(enlarged, rotated); memberships are compacted to a fixed capacity with
+13-dim geometry per (point, RoI) pair, and ``dropped`` counts the
+memberships lost to the per-point cap. Two ways to find them:
+
+- :func:`extract_roi_points` tests every point against every RoI, in RoI
+  chunks so the peak is [N, chunk, 3] (the two-stage FSD's pooling);
+- :func:`extract_roi_points_grid` rasterizes RoIs onto a coarse BEV cell
+  grid (each cell keeps its ``cands_per_cell`` lowest-index covering RoIs)
+  and tests each point against its own cell's candidates (FSF's
+  refinement).
 """
 from __future__ import annotations
 
@@ -26,6 +31,10 @@ class RoiPoints(NamedTuple):
     roi_idx: torch.Tensor     # [R] roi index
     geometry: torch.Tensor    # [R, 13]
     valid: torch.Tensor       # [R]
+    # memberships dropped because a point sat inside more than
+    # ``rois_per_point`` RoIs, [] i32 (the grid path's RoIs past
+    # ``cands_per_cell`` per cell are not counted)
+    dropped: torch.Tensor
 
 
 def _topk_lowest(score: torch.Tensor, k: int, neg: int):
@@ -35,7 +44,8 @@ def _topk_lowest(score: torch.Tensor, k: int, neg: int):
     return s[:, :k], cols[:, :k]
 
 
-def _finalize_pairs(xyz, rois, member_ok, top_idx, extra, capacity, rois_per_point) -> RoiPoints:
+def _finalize_pairs(xyz, rois, member_ok, top_idx, extra, capacity, rois_per_point,
+                    n_inside) -> RoiPoints:
     sel, sel_valid = masked_gather(member_ok.reshape(-1), capacity)
     point_idx = torch.div(sel, rois_per_point, rounding_mode="floor").long()
     roi_idx = top_idx.reshape(-1)[sel.long()]
@@ -53,7 +63,39 @@ def _finalize_pairs(xyz, rois, member_ok, top_idx, extra, capacity, rois_per_poi
         roi_idx=roi_idx.to(torch.int32),
         geometry=geometry * sel_valid[:, None].to(p.dtype),
         valid=sel_valid,
+        dropped=(n_inside - member_ok.sum()).to(torch.int32),
     )
+
+
+def extract_roi_points(xyz, point_batch, point_valid, rois, roi_batch, roi_valid,
+                       extra_wlh: Tuple[float, float, float], capacity: int,
+                       rois_per_point: int = 2, roi_chunk: int = 64) -> RoiPoints:
+    """Membership of points in enlarged rotated RoIs by the all-pairs test,
+    ``roi_chunk`` RoIs at a time with a running per-point top
+    ``rois_per_point`` (lowest RoI index first), compacted to ``capacity``
+    pairs. The pairs equal the JAX package's ``lax.scan`` row for row."""
+    q, n = rois.shape[0], xyz.shape[0]
+    k = rois_per_point
+    extra = torch.tensor(extra_wlh, dtype=xyz.dtype, device=xyz.device)
+    # score = −roi index where inside, else ``neg``: the k largest are the
+    # k lowest containing indices
+    neg = -q - roi_chunk - 1
+    top = torch.full((n, k), neg, dtype=torch.int64, device=xyz.device)
+    n_inside = torch.zeros((), dtype=torch.int64, device=xyz.device)
+    for base in range(0, q, roi_chunk):
+        rc = rois[base:base + roi_chunk]
+        half = (rc[:, 3:6] + extra) * 0.5
+        local = rotate_points_z(xyz[:, None, :] - gravity_center(rc)[None], -rc[None, :, 6])
+        inside = (local.abs() <= half[None]).all(dim=-1)
+        inside &= point_valid[:, None] & roi_valid[None, base:base + roi_chunk]
+        inside &= point_batch[:, None] == roi_batch[None, base:base + roi_chunk]
+        n_inside += inside.sum()
+        gidx = torch.arange(base, base + rc.shape[0], device=xyz.device)
+        score = torch.where(inside, -gidx[None, :], torch.full_like(gidx, neg)[None, :])
+        top = torch.topk(torch.cat([top, score], dim=1), k, dim=1).values
+    member_ok = top > neg
+    top_idx = torch.where(member_ok, -top, torch.zeros_like(top))
+    return _finalize_pairs(xyz, rois, member_ok, top_idx, extra, capacity, k, n_inside)
 
 
 def _roi_grid_raster(rois, roi_batch, roi_valid, extra, nx, ny, batch_size, cell, window,
@@ -111,7 +153,7 @@ def _roi_grid_raster(rois, roi_batch, roi_valid, extra, nx, ny, batch_size, cell
 def _roi_grid_lookup(xyz, point_batch, point_valid, ptab, q, extra, nx, ny, batch_size, cell,
                      cands_per_cell, k, bev_lo):
     """Per-point candidate test + k lowest-index containing RoIs →
-    (member_ok [N, k], top_idx [N, k])."""
+    (member_ok [N, k], top_idx [N, k], inside count [])."""
     ncells = batch_size * nx * ny
     kc = cands_per_cell
     pcx = torch.floor((xyz[:, 0] - bev_lo[0]) / cell).to(torch.int32)
@@ -135,7 +177,7 @@ def _roi_grid_lookup(xyz, point_batch, point_valid, ptab, q, extra, nx, ny, batc
     neg = -q - 2
     score = torch.where(inside, -safe, torch.full_like(safe, neg))
     top_scores, cols = _topk_lowest(score, k, neg)
-    return top_scores > neg, torch.gather(safe, 1, cols)
+    return top_scores > neg, torch.gather(safe, 1, cols), inside.sum()
 
 
 def extract_roi_points_grid(xyz, point_batch, point_valid, rois, roi_batch, roi_valid,
@@ -151,10 +193,11 @@ def extract_roi_points_grid(xyz, point_batch, point_valid, rois, roi_batch, roi_
     ny = int(np.ceil((bev_hi[1] - bev_lo[1]) / cell))
     ptab = _roi_grid_raster(rois, roi_batch, roi_valid, extra, nx, ny, batch_size, cell,
                             window, cands_per_cell, bev_lo)
-    member_ok, top_idx = _roi_grid_lookup(
+    member_ok, top_idx, n_inside = _roi_grid_lookup(
         xyz, point_batch, point_valid, ptab, rois.shape[0], extra, nx, ny, batch_size, cell,
         cands_per_cell, rois_per_point, bev_lo)
-    return _finalize_pairs(xyz, rois, member_ok, top_idx, extra, capacity, rois_per_point)
+    return _finalize_pairs(xyz, rois, member_ok, top_idx, extra, capacity, rois_per_point,
+                           n_inside)
 
 
 class FullySparseBboxHead(nn.Module):

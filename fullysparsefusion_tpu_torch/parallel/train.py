@@ -23,6 +23,7 @@ from torch import nn
 from ..models.camera import CameraData
 from ..models.fsd import SingleStageFSD
 from ..models.layers import bn_group
+from ..models.two_stage import TwoStageFSD
 from ..train.hooks import RuntimeSchedule
 from ..utils.containers import GroundTruth, PointBatch
 
@@ -97,8 +98,9 @@ def clip_grad_global_norm_(params, max_norm: float) -> torch.Tensor:
 
 class Batch(NamedTuple):
     """One training batch: points, camera data, the augmented and the no-aug
-    ground truth. FSF's points carry the no-aug xyz channels; a LiDAR-only
-    ``SingleStageFSD`` takes no camera data and no no-aug GT (None)."""
+    ground truth. FSF's points carry the no-aug xyz channels; the LiDAR-only
+    ``SingleStageFSD`` and ``TwoStageFSD`` take no camera data and no no-aug
+    GT (None)."""
 
     pb: PointBatch
     cam: Optional[CameraData]
@@ -112,8 +114,8 @@ def fsf_forward(model: nn.Module, batch: Batch, **kw):
 
 
 def fsd_forward(model: nn.Module, batch: Batch, **kw):
-    """``SingleStageFSD`` on ``batch``'s points and GT (the JAX package's
-    ``fsd_forward_fn``)."""
+    """``SingleStageFSD`` or ``TwoStageFSD`` on ``batch``'s points and GT
+    (the JAX package's ``fsd_forward_fn``)."""
     return model(batch.pb, batch.gt.boxes.shape[0], batch.gt, **kw)
 
 
@@ -159,7 +161,7 @@ def sharded_train_step(model: nn.Module, opt: torch.optim.Optimizer, sched: Runt
                        mark: Optional[Callable[[str], None]] = None):
     """One data-parallel step over the ranks of ``group``, each with its own
     ``batch``: the train-mode forward with losses (:func:`fsd_forward` for a
-    ``SingleStageFSD``, :func:`fsf_forward` otherwise) under
+    ``SingleStageFSD`` or ``TwoStageFSD``, :func:`fsf_forward` otherwise) under
     ``layers.bn_group(group)`` (SyncBN statistics, loss normalizers averaged
     over the ranks), the backward of this rank's :func:`total_loss` (the
     BN all-reduces carry every rank's cotangents into it), each gradient
@@ -176,7 +178,7 @@ def sharded_train_step(model: nn.Module, opt: torch.optim.Optimizer, sched: Runt
     mark = mark or (lambda phase: None)
     model.train()
     opt.zero_grad(set_to_none=True)
-    forward = fsd_forward if isinstance(model, SingleStageFSD) else fsf_forward
+    forward = fsd_forward if isinstance(model, (SingleStageFSD, TwoStageFSD)) else fsf_forward
     with bn_group(group):
         out = forward(model, batch, thresh_buffer=sched.threshold_buffer(step),
                       detection_weight=1.0 if sched.enable_detection(step) else 0.0)

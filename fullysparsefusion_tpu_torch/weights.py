@@ -6,6 +6,10 @@ The port's submodules carry the flax module names, so
 layout transforms:
 
 - Dense ``kernel [in, out]`` → Linear ``weight [out, in]``;
+- attention's DenseGeneral ``query`` / ``key`` / ``value`` ``kernel [in,
+  heads, head_dim]`` and ``out`` ``kernel [heads, head_dim, out]`` →
+  Linear ``weight`` with the head axes flattened, ``bias [heads,
+  head_dim]`` → ``[heads · head_dim]``;
 - LayerNorm / BatchNorm ``scale`` → ``weight``, ``bias`` → ``bias``;
 - BatchNorm ``batch_stats/{mean,var}`` → ``running_mean`` / ``running_var``;
 - sparse-conv ``w [27, Cin, Cout]`` as is.
@@ -28,6 +32,7 @@ from .models.fsd import SingleStageFSD
 from .models.fsf import FSF, ZeroInitMLP
 from .models.layers import LayerNorm, MaskedBatchNorm
 from .models.sparse_unet import _ConvBlock
+from .models.two_stage import TwoStageFSD
 
 # truncated-normal std correction of flax's variance_scaling("truncated_normal")
 _TRUNC_STD = 0.87962566103423978
@@ -53,6 +58,13 @@ def from_jax_variables(tree: Mapping) -> Dict[str, torch.Tensor]:
             mod, name = ".".join(path[:-1]), path[-1]
             if collection == "params" and name == "kernel" and arr.ndim == 2:
                 key, val = f"{mod}.weight", arr.T
+            elif collection == "params" and name == "kernel" and arr.ndim == 3:
+                # DenseGeneral: contracted axes first, features last
+                flat = (arr.reshape(-1, arr.shape[-1]) if path[-2] == "out"
+                        else arr.reshape(arr.shape[0], -1))
+                key, val = f"{mod}.weight", flat.T
+            elif collection == "params" and name == "bias" and arr.ndim == 2:
+                key, val = f"{mod}.bias", arr.reshape(-1)
             elif collection == "params" and name == "scale":
                 key, val = f"{mod}.weight", arr
             elif collection == "params" and name in ("bias", "w"):
@@ -120,3 +132,11 @@ def build_fsd(cfg: FSDConfig, seed: int = 0, device="cuda",
     weights from ``torch.Generator().manual_seed(seed)`` or, when given, the
     JAX package's variables (loaded with ``strict=True``)."""
     return _build(SingleStageFSD(cfg), seed, device, jax_variables)
+
+
+def build_two_stage_fsd(cfg: FSDConfig, seed: int = 0, device="cuda",
+                        jax_variables: Optional[Mapping] = None) -> TwoStageFSD:
+    """A ``TwoStageFSD`` (one task) in eval mode on ``device``, with
+    weights from ``torch.Generator().manual_seed(seed)`` or, when given, the
+    JAX package's variables (loaded with ``strict=True``)."""
+    return _build(TwoStageFSD(cfg), seed, device, jax_variables)

@@ -47,8 +47,9 @@ from fullysparsefusion_tpu.utils.containers import PointBatch as JPointBatch
 from fullysparsefusion_tpu_torch import synthetic as S
 from fullysparsefusion_tpu_torch.weights import from_jax_variables
 from test_torch_ddp_port import (DETECTION_HEADS, SCENE_SEEDS, bn_inputs, bn_rank, case_scenes,
-                                 fsf_step_rank, rank_config, run_jobs, scene_arrays, spawn)
-from test_torch_fsf import _numpy_variables
+                                 fsf_step_rank, rank_config, run_jobs, scene_arrays, spawn,
+                                 torch_one_thread)
+from test_torch_fsf import FAST_COMPILE, _numpy_variables
 
 LOSS_TOL = 4e-3
 F32_TOL = 1e-5
@@ -112,7 +113,7 @@ def parity(mesh2, tmp_path_factory):
 
     step = jax.jit(shard_map(local, mesh=mesh2,
                              in_specs=(P(), P(), P("dp"), P("dp"), P("dp"), P()),
-                             out_specs=(P(), P(), P(), P())))
+                             out_specs=(P(), P(), P(), P())), compiler_options=FAST_COMPILE)
     jres = {}
     for name, (det_weight, all_invalid) in CASES.items():
         out = step(jvars["params"], jvars["batch_stats"],

@@ -288,6 +288,16 @@ def one_thread():
         torch.set_num_threads(threads)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def torch_one_thread():
+    """Every test and fixture of a module that has this fixture (defined or
+    imported) runs torch on one intra-op thread, and the count is restored
+    after the module: the parallel test workers would otherwise
+    oversubscribe the cores, which slows a tiny CPU step down many times."""
+    with one_thread():
+        yield
+
+
 @one_thread()
 def single_process_reference(scenes, state, det_weight=1.0, train_bn=True):
     """One process on the batch of ``scenes`` (the ranks' scenes, in rank

@@ -23,6 +23,7 @@ from fullysparsefusion_tpu_torch.ops.nms import NMSResult
 from fullysparsefusion_tpu_torch.parallel import eval as teval
 from fullysparsefusion_tpu_torch.utils.containers import GroundTruth
 from test_eval_golden import NUSC_CLASSES, _box
+from test_torch_ddp_port import torch_one_thread  # noqa: F401 (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

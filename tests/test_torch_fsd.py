@@ -58,8 +58,8 @@ from fullysparsefusion_tpu_torch.config import tiny_fsd_config
 from fullysparsefusion_tpu_torch.parallel import train as T
 from fullysparsefusion_tpu_torch.train.hooks import RuntimeSchedule
 from fullysparsefusion_tpu_torch.weights import build_fsd, from_jax_variables
-from test_torch_ddp_port import one_thread
-from test_torch_fsf import _numpy_variables
+from test_torch_ddp_port import torch_one_thread  # noqa: F401 (autouse)
+from test_torch_fsf import FAST_COMPILE, _numpy_variables
 
 BF16_CHAIN_TOL = 4e-3
 STATS_TOL = 1e-5
@@ -70,8 +70,6 @@ OPT_FLIP_SHARE = 1e-3
 CORE = "segmentor.SegmentorCore_0"
 LR_RULES = {CORE: 0.2}
 SCENE = dict(seed=0, boxes_per_sample=5)
-# XLA compile time of the reference, not its math
-FAST_COMPILE = {"xla_backend_optimization_level": 0, "xla_llvm_disable_expensive_passes": True}
 
 
 def _gather_only(cfg):
@@ -140,8 +138,7 @@ def one_task():
     ref = {w: jax.tree_util.tree_map(np.asarray, step(jvars["params"], jvars["batch_stats"], w))
            for w in (1.0, 0.0)}
     jdet = ref[1.0][4]
-    with one_thread():
-        got, det, train = _one_task_port(cfg, jvars, tpb, tgt)
+    got, det, train = _one_task_port(cfg, jvars, tpb, tgt)
     return dict(jvars=jvars, ref=ref, jdet=jdet, got=got, det=det, train=train)
 
 
@@ -184,8 +181,7 @@ def six_tasks():
     jloss, jout, jgrads, jparams, jdet = jax.tree_util.tree_map(
         np.asarray, jax.jit(run, compiler_options=FAST_COMPILE)(jvars["params"],
                                                                 jvars["batch_stats"]))
-    with one_thread():
-        port = _six_task_port(cfg, jvars, tpb, tgt)
+    port = _six_task_port(cfg, jvars, tpb, tgt)
     return dict(jvars=jvars, jloss=jloss, jout=jout, jgrads=jgrads, jparams=jparams, jdet=jdet,
                 **port)
 

@@ -45,7 +45,7 @@ from fullysparsefusion_tpu_torch.parallel import train as T
 from fullysparsefusion_tpu_torch.synthetic import ccl_problem_arrays
 from fullysparsefusion_tpu_torch.train.hooks import RuntimeSchedule
 from fullysparsefusion_tpu_torch.weights import build_fsd, from_jax_variables
-from test_torch_ddp_port import one_thread
+from test_torch_ddp_port import torch_one_thread  # noqa: F401 (autouse)
 from test_torch_kernels import _boxes
 from test_torch_losses import _close, _eq, _gt_arrays, _gts, _queries, _t
 
@@ -54,13 +54,6 @@ F32_TOL = 1e-5
 HEAD_KW = dict(in_channel=32, shared_mlp_dims=(32, 32), cls_hidden_dim=16,
                common_attrs=(("center", 3, 2, 16), ("dim", 3, 2, 16), ("rot", 2, 2, 16),
                              ("vel", 2, 2, 16)), max_num=40, score_thr=0.3)
-
-
-@pytest.fixture(autouse=True)
-def _one_thread():
-    """One intra-op thread: the parallel test workers contend for the cores."""
-    with one_thread():
-        yield
 
 
 # ---------------------------------------------------------------------------

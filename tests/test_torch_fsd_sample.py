@@ -19,6 +19,7 @@ from fullysparsefusion_tpu.config import tiny_fsf_config as j_tiny_fsf_config
 from fullysparsefusion_tpu.models.fsd import group_sample as j_group_sample
 from fullysparsefusion_tpu_torch.config import tiny_fsf_config
 from fullysparsefusion_tpu_torch.models.fsd import group_sample
+from test_torch_ddp_port import torch_one_thread  # noqa: F401 (autouse)
 
 
 def _inputs(seed, p=600, c=10):

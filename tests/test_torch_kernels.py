@@ -23,6 +23,7 @@ import torch
 from fullysparsefusion_tpu_torch.models.sparse_unet import SubmRulebook
 from fullysparsefusion_tpu_torch.ops import ccl, geometry, nms, sparse_conv
 from fullysparsefusion_tpu_torch.synthetic import ccl_known_components, ccl_problem_arrays
+from test_torch_ddp_port import torch_one_thread  # noqa: F401 (autouse)
 
 
 @pytest.fixture

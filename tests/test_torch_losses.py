@@ -33,6 +33,7 @@ from fullysparsefusion_tpu_torch.models import heads as th
 from fullysparsefusion_tpu_torch.models import segmentor as tseg
 from fullysparsefusion_tpu_torch.ops import geometry as tg
 from fullysparsefusion_tpu_torch.utils.containers import GroundTruth, PointBatch
+from test_torch_ddp_port import torch_one_thread  # noqa: F401 (autouse)
 
 F32_TOL = 1e-5
 IMG_W, IMG_H = 96, 64

@@ -25,6 +25,7 @@ from fullysparsefusion_tpu_torch.ops.voxelize import voxelize_points
 from fullysparsefusion_tpu_torch.synthetic import CCL_CASES, ccl_problem_arrays
 from fullysparsefusion_tpu_torch.utils.gather import masked_gather
 from test_torch_kernels import _boxes, _ccl_problems, t
+from test_torch_ddp_port import torch_one_thread  # noqa: F401 (autouse)
 
 F32_TOL = 1e-5
 

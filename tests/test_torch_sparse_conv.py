@@ -19,6 +19,7 @@ import torch
 from fullysparsefusion_tpu.ops import sparse_conv as jsc
 from fullysparsefusion_tpu.ops.pallas_kernels import window_gather_conv
 from fullysparsefusion_tpu_torch.ops import sparse_conv as tsc
+from test_torch_ddp_port import torch_one_thread  # noqa: F401 (autouse)
 
 K1_TOL = 1e-5
 BF16_TOL = 4e-3

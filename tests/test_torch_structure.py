@@ -13,6 +13,7 @@ from fullysparsefusion_tpu.data.masks import pack_mask_scores as j_pack_mask_sco
 from fullysparsefusion_tpu_torch import config as tcfg
 from fullysparsefusion_tpu_torch import synthetic as S
 from fullysparsefusion_tpu_torch.models.camera import CameraData
+from test_torch_ddp_port import torch_one_thread  # noqa: F401 (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, "fullysparsefusion_tpu_torch")

@@ -54,8 +54,9 @@ from fullysparsefusion_tpu_torch.train.checkpoint import load_checkpoint, save_c
 from fullysparsefusion_tpu_torch.train.hooks import RuntimeSchedule
 from fullysparsefusion_tpu_torch.utils.containers import PointBatch
 from fullysparsefusion_tpu_torch.weights import build_fsf, from_jax_variables
-from test_torch_fsf import _numpy_variables
+from test_torch_fsf import FAST_COMPILE, _numpy_variables
 from test_torch_sparse_conv import _active_set, _strided
+from test_torch_ddp_port import torch_one_thread  # noqa: F401 (autouse)
 
 LOSS_TOL = 4e-3
 F32_TOL = 1e-5
@@ -102,7 +103,6 @@ def parity():
         jax.random.key(0))
     jvars = _numpy_variables(shapes)
 
-    @jax.jit
     def run(params, stats):
         def loss_fn(p):
             out, upd = model.apply({"params": p, "batch_stats": stats}, pb, cam, 2, gt, gt, True,
@@ -113,7 +113,8 @@ def parity():
         return loss, out, new_stats, grads
 
     jloss, jout, jstats, jgrads = jax.tree_util.tree_map(
-        np.asarray, run(jvars["params"], jvars["batch_stats"]))
+        np.asarray, jax.jit(run, compiler_options=FAST_COMPILE)(jvars["params"],
+                                                                jvars["batch_stats"]))
 
     tcfg = _gather_only(tiny_fsf_config())
     sc = S.make_scene_arrays(seed=0, n_cap=tcfg.caps.points, max_gt=tcfg.caps.max_gt)

@@ -17,6 +17,7 @@ import torch
 
 from fullysparsefusion_tpu_torch.ops import ccl, sparse_conv
 from fullysparsefusion_tpu_torch.synthetic import ccl_known_components
+from test_torch_ddp_port import torch_one_thread  # noqa: F401 (autouse)
 
 K3 = 27
 

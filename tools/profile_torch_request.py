@@ -1,17 +1,20 @@
 #!/usr/bin/env python3
 """Where one request's time goes in the PyTorch port, on one NVIDIA GPU.
 
-    python3 tools/profile_torch_request.py [--requests 3] [--model fsf|fsd]
+    python3 tools/profile_torch_request.py [--requests 3] [--model fsf|fsd|two_stage]
 
 Builds the kernels and the full-width FSF of ``chip_smoke.py`` (``--model
-fsd``: its six-task single-stage FSD) with random weights (seed 0) on its
-bench-scale scene (seed 0), warms up, then:
+fsd``: its six-task single-stage FSD; ``--model two_stage``: its two-stage
+FSD) with random weights (seed 0) on its bench-scale scene (seed 0), warms
+up, then:
 
 1. spans: CUDA events around every top-level submodule and around the
    functions the forward calls outside them (FSF: mask lookup, RoI pooling,
    foreground extraction, ``get_bboxes``; FSD: foreground extraction,
    ``get_bboxes``, and per task its decode + NMS and, inside it, the
-   rotated IoU matrix), averaged over ``--requests`` requests. Spans are
+   rotated IoU matrix; two-stage: the first stage's parts, the RCNN's RoI
+   pooling, SIR and MLPs, ``get_bboxes`` and its IoU matrix), averaged over
+   ``--requests`` requests. Spans are
    stream time between the two events, idle gaps included, so they add up
    to the request's time; nested spans are listed with their parent.
 2. kernels: ``torch.profiler`` over one request; device time by kernel name
@@ -87,7 +90,7 @@ def wrap(owner, attr, name, spans):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--requests", type=int, default=3)
-    ap.add_argument("--model", choices=("fsf", "fsd"), default="fsf")
+    ap.add_argument("--model", choices=("fsf", "fsd", "two_stage"), default="fsf")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_request: no CUDA device", file=sys.stderr)
@@ -99,6 +102,8 @@ def main() -> int:
     kernels.build_all()
     if args.model == "fsd":
         request, spans = fsd_request_spans()
+    elif args.model == "two_stage":
+        request, spans = two_stage_request_spans()
     else:
         request, spans = fsf_request_spans()
     total = 0.0
@@ -191,6 +196,39 @@ def fsd_request_spans():
             return out
 
         setattr(owner, attr, per_task)
+    return request, spans
+
+
+def two_stage_request_spans():
+    """The two-stage FSD's request and its spans: the first stage's
+    segmentor and LiDAR branch, the RCNN's pooling, SIR and MLPs, and the
+    decode with its IoU matrix."""
+    import chip_smoke
+    from fullysparsefusion_tpu_torch.models import rcnn
+    from fullysparsefusion_tpu_torch.ops import nms
+    from fullysparsefusion_tpu_torch.weights import build_two_stage_fsd
+
+    model = build_two_stage_fsd(chip_smoke.two_stage_config(), seed=0, device="cuda")
+    pb, _ = chip_smoke.fsd_scene(0, model.cfg)
+
+    def request():
+        with torch.inference_mode():
+            return model.get_bboxes(model(pb, 1), 1)
+
+    warm(request)
+    spans = Spans()
+    rpn, head = model.rpn, model.roi_head
+    hook_module(rpn.segmentor, "rpn.segmentor", spans)
+    hook_module(rpn.segmentor.SegmentorCore_0.SparseUNet_0, "rpn.segmentor.SparseUNet_0", spans)
+    hook_module(rpn.query_branch, "rpn.query_branch", spans)
+    wrap(rpn.query_branch, "extract_foreground", "rpn.query_branch.extract_foreground", spans)
+    hook_module(head, "roi_head", spans)
+    for sub in ("FullySparseBboxHead_0", "MLP_0", "MLP_1"):
+        hook_module(getattr(head, sub), f"roi_head.{sub}", spans)
+    wrap(rcnn, "extract_roi_points", "roi_head.extract_roi_points", spans)
+    wrap(nms, "boxes_iou_bev", "get_bboxes.iou", spans)
+    wrap(model, "get_bboxes", "get_bboxes", spans)
+    wrap(model, "forward", "forward", spans)
     return request, spans
 
 
