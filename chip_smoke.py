@@ -88,6 +88,17 @@ Phases, each of which ends the script with a non-zero exit on failure:
 11. sst: the SST backbone at its defaults on the seed-0 bench scene's
    pillars, forward and backward timed, its windows and dropped tokens
    logged, the padding rows 0, the card's output against the CPU's.
+12. htc: the HTC 2D instance-mask model at its defaults (ResNeXt-101 64x4d
+   with DCN at c3-c5, random weights from seed 0, the DCN offset branches
+   drawn non-zero), cuDNN deterministic: the default model on one 256 x
+   448 camera against the CPU on every image-level and fixed-RoI tap; four
+   requests (seeds 0, 1, 2, 0), each one nuScenes sample's six 900 x 1,600
+   cameras through the forward (``gpu_ms``) and the host's paste and
+   paint (``host_ms``), K3 launched twice per camera, the repeat's
+   detections and mask planes bitwise equal; every K3 call of one request
+   held to its plain version and timed per shape, and the mean DCN offset
+   per stage. At the start, the tiny HTC's taps and detections on the GPU
+   against the CPU.
 
 The last lines are a ``{"kernels": [...]}`` JSON object, the card's name and
 power limit from ``nvidia-smi``, and ``{"ok": true, "device": {...}}``.
@@ -2033,6 +2044,262 @@ def sst_phase() -> None:
          "seconds": round(time.perf_counter() - t0, 3)})
 
 
+# -- HTC, the 2D instance-mask model -----------------------------------------
+
+HTC_TINY = dict(depth_blocks=(1, 1, 1, 1), num_proposals=16, rpn_pre_nms=16, max_dets=4)
+HTC_TINY_HW = (96, 160)
+HTC_DEPTH_HW = (256, 448)
+# fixed RoIs (xyxy px) for the cascade and mask heads' taps, inside 96 x 160
+HTC_FIXED_ROIS = ((4, 4, 40, 30), (10, 8, 60, 50), (0, 0, 150, 90), (30, 20, 50, 44),
+                  (100, 50, 159, 95), (-8, 60, 30, 100))
+# one request: one nuScenes sample's six cameras at 900 x 1,600 (padded to 928)
+HTC_CAMS, HTC_IMG_HW = 6, (900, 1600)
+# the painting's score threshold: at random weights every class scores ~1/11,
+# so the tool's 0.3 would paint nothing
+HTC_SCORE_THR = 0.0
+# HTC taps on the card against the CPU, each relative to the tap's largest
+# magnitude: f32 on both (no TF32), cuDNN's conv algorithms against
+# oneDNN's, so sums in another order through the tiny model's ~20 layers
+# and the default model's ~110 (its 33 bottlenecks, FPN, heads)
+HTC_TINY_TOL = 1e-4
+HTC_DEPTH_TOL = 1e-3
+# the DCN offset branches' weights ~ N(0, HTC_OFFSET_STD^2 / fan_in): the
+# seeded init leaves their inputs at an rms of ~0.4-1.3, so offsets of about
+# a pixel (a released checkpoint's are not zero either)
+HTC_OFFSET_STD = 1.5
+# per camera: the RPN's NMS (one class over 5 levels x 1,000) and the
+# detections' (ten classes over 1,000 proposals)
+HTC_NMS_PER_CAMERA = 2
+
+
+def htc_model(seed: int = 0, **kw):
+    """``build_htc(seed)`` on the CPU with every DCN offset branch drawn
+    non-zero from the seed."""
+    from fullysparsefusion_tpu_torch.models.htc import DeformConvBlock
+    from fullysparsefusion_tpu_torch.weights import build_htc
+
+    model = build_htc(seed=seed, device="cpu", **kw)
+    gen = torch.Generator().manual_seed(seed + 1)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, DeformConvBlock):
+                w = m.conv_offset.weight
+                w.normal_(0.0, HTC_OFFSET_STD / math.sqrt(w[0].numel()), generator=gen)
+    return model
+
+
+def htc_images(seed: int, n: int, hw) -> np.ndarray:
+    return np.random.default_rng(seed).integers(0, 256, (n, *hw, 3), dtype=np.uint8)
+
+
+def htc_tap_errors(what: str, ref: dict, got: dict, tol: float) -> dict:
+    """Each tap's largest difference over the tap's largest magnitude; fails
+    past ``tol`` and names the earliest tap (``ACTIVATION_ORDER``) past it."""
+    from fullysparsefusion_tpu_torch.utils.htc_parity import ACTIVATION_ORDER
+
+    errs = {}
+    for k in ACTIVATION_ORDER:
+        if k not in ref:
+            continue
+        a, b = ref[k], got[k]
+        if a.shape != b.shape or not np.isfinite(b).all():
+            fail(f"{what}: tap {k} has shape {b.shape} or non-finite values")
+        errs[k] = float(np.abs(a - b).max() / max(np.abs(a).max(), 1e-30))
+    worst = [k for k, v in errs.items() if v > tol]
+    if worst:
+        fail(f"{what}: tap {worst[0]} differs by {errs[worst[0]]:.3g} of its magnitude "
+             f"(tolerance {tol})")
+    return errs
+
+
+def small_htc_reference_check(device="cuda"):
+    """Tiny HTC (one bottleneck per stage, 16 proposals, 4 detections, 96 x
+    160, DCN offsets non-zero): every ``ACTIVATION_ORDER`` tap (the image
+    taps and the cascade and mask heads on fixed RoIs) GPU against CPU
+    within ``HTC_TINY_TOL`` of its magnitude; the whole forward's
+    detections: validity and labels equal, boxes, scores and mask
+    probabilities within ``HTC_TINY_TOL`` (boxes of the image size)."""
+    from fullysparsefusion_tpu_torch.utils.htc_parity import dump_torch_activations
+
+    t0 = time.perf_counter()
+    ref_model = htc_model(0, **HTC_TINY)
+    gpu_model = copy.deepcopy(ref_model).to(device)
+    img = torch.from_numpy(htc_images(0, 1, HTC_TINY_HW)).float()
+    rois = torch.tensor(HTC_FIXED_ROIS, dtype=torch.float32)
+    acts, dets = {}, {}
+    for dev, model in (("cpu", ref_model), (device, gpu_model)):
+        acts[dev] = dump_torch_activations(model, img.to(dev), rois.to(dev))
+        with torch.inference_mode():
+            (det,) = model(img.to(dev))
+        dets[dev] = type(det)(*[t.cpu() for t in det])
+    what = "small HTC reference"
+    errs = htc_tap_errors(what, acts["cpu"], acts[device], HTC_TINY_TOL)
+    d_cpu, d_gpu = dets["cpu"], dets[device]
+    if not torch.equal(d_cpu.valid, d_gpu.valid) or not torch.equal(d_cpu.labels, d_gpu.labels):
+        fail(f"{what}: detection validity or labels differ")
+    report = {}
+    for name, scale in (("boxes", max(HTC_TINY_HW)), ("scores", 1.0), ("masks", 1.0)):
+        a, b = getattr(d_cpu, name), getattr(d_gpu, name)
+        report[name] = float((a - b).abs().max())
+        if report[name] > HTC_TINY_TOL * scale:
+            fail(f"{what}: detection {name} differ by {report[name]:.3g}")
+    if int(d_cpu.valid.sum()) <= 0:
+        fail(f"{what}: no detection")
+    log({"phase": "small_htc_reference", "tolerance": HTC_TINY_TOL,
+         "tap_rel_err": {k: float(f"{v:.3g}") for k, v in errs.items()},
+         "worst_tap": max(errs, key=errs.get), "detections": int(d_cpu.valid.sum()),
+         "labels": d_cpu.labels.tolist(),
+         "det_max_abs_err": {k: float(f"{v:.3g}") for k, v in report.items()},
+         "seconds": round(time.perf_counter() - t0, 3)})
+
+
+def htc_depth_check(model, cpu_model, device="cuda"):
+    """The default HTC (``model`` on the card, ``cpu_model`` its copy on the
+    CPU) on one camera at 256 x 448: the image-level taps and the cascade
+    and mask heads on fixed RoIs, each within ``HTC_DEPTH_TOL`` of its
+    magnitude. Not held on the proposals' and detections' discrete
+    selection."""
+    from fullysparsefusion_tpu_torch.utils.htc_parity import dump_torch_activations
+
+    t0 = time.perf_counter()
+    img = torch.from_numpy(htc_images(7, 1, HTC_DEPTH_HW)).float()
+    rois = torch.tensor(HTC_FIXED_ROIS, dtype=torch.float32) * 2.5
+    got = dump_torch_activations(model, img.to(device), rois.to(device))
+    ref = dump_torch_activations(cpu_model, img, rois)
+    errs = htc_tap_errors("full-depth HTC check", ref, got, HTC_DEPTH_TOL)
+    log({"phase": "htc_depth_check", "image_hw": list(HTC_DEPTH_HW), "tolerance": HTC_DEPTH_TOL,
+         "tap_rel_err": {k: float(f"{v:.3g}") for k, v in errs.items()},
+         "worst_tap": max(errs, key=errs.get), "seconds": round(time.perf_counter() - t0, 3)})
+
+
+def htc_serve(model, requests, wrappers) -> dict:
+    """One request per seed: six 900 x 1,600 cameras (uint8 RGB from the
+    seed), padded and copied to the card, then the HTC forward (``gpu_ms``,
+    CUDA events) and on the host the paste and paint (``host_ms``), each
+    with the launch counters zeroed just before the forward and read just
+    after: K3 ``HTC_NMS_PER_CAMERA`` times a camera, nothing else. The
+    repeat of seed 0 must give its detections and mask planes bitwise."""
+    from fullysparsefusion_tpu_torch import generate_masks as gm
+
+    t0 = time.perf_counter()
+    results, launches = [], []
+    for seed, images in requests:
+        x = torch.from_numpy(gm.pad_images(images)).cuda()
+        proposals = []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero(wrappers)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        with capture_results(model, "_proposals", proposals), torch.inference_mode():
+            start.record()
+            dets = model(x)
+            end.record()
+        torch.cuda.synchronize()
+        launches.append(counts(wrappers))
+        peak = torch.cuda.max_memory_allocated() / 2**20
+        t_host = time.perf_counter()
+        pasted = gm.paste_detections(dets, HTC_IMG_HW, HTC_SCORE_THR)
+        planes, annos = gm.paint_sample(pasted, HTC_CAMS, model.num_classes, HTC_IMG_HW)
+        anno = gm.reorg_anno(annos)
+        host_ms = (time.perf_counter() - t_host) * 1e3
+        dets = [type(d)(*[t.cpu() for t in d]) for d in dets]
+        for d in dets:
+            for name, t in zip(d._fields, d):
+                if t.is_floating_point() and not torch.isfinite(t).all():
+                    fail(f"HTC request seed {seed}: non-finite {name}")
+        expect = {k: 0 for k in wrappers}
+        expect["nms_keep"] = HTC_NMS_PER_CAMERA * HTC_CAMS
+        if launches[-1] != expect:
+            fail(f"HTC request seed {seed}: launches {launches[-1]}, expected {expect}")
+        log({"phase": "htc_request", "seed": seed, "cameras": HTC_CAMS,
+             "padded_hw": list(x.shape[1:3]),
+             "valid_proposals_per_camera": [int(v.sum()) for _, v in proposals],
+             "detections_per_camera": [int(d.valid.sum()) for d in dets],
+             "painted_instances": int(anno[:, 8].sum()),
+             "painted_pixels": int((planes > 0).sum()),
+             "gpu_ms": round(start.elapsed_time(end), 3), "host_ms": round(host_ms, 3),
+             "peak_mem_mib": round(peak, 1), "launches": launches[-1]})
+        results.append((dets, planes, anno))
+    (d0, p0, a0), (d1, p1, a1) = results[0], results[-1]
+    for cam, (a, b) in enumerate(zip(d0, d1)):
+        for name, u, v in zip(a._fields, a, b):
+            if not torch.equal(u, v):
+                fail(f"re-run of HTC request seed 0 changed camera {cam}'s {name}")
+    if not (np.array_equal(p0, p1) and np.array_equal(a0, a1)):
+        fail("re-run of HTC request seed 0 changed the mask planes or the anno table")
+    per_request = {k: sum(n[k] for n in launches) / len(launches) for k in launches[0]}
+    log({"phase": "htc_serve", "requests": len(requests), "launches_per_request": per_request,
+         "seconds": round(time.perf_counter() - t0, 3)})
+    return per_request
+
+
+def htc_check_kernels(model, images) -> dict:
+    """Every K3 call of one HTC request held bitwise to its plain version on
+    the card and timed (CUDA-graph replay), by shape; the mean |offset| of
+    each ResNeXt stage's DCN blocks in that request."""
+    from fullysparsefusion_tpu_torch import generate_masks as gm
+    from fullysparsefusion_tpu_torch.models.htc import DeformConvBlock
+
+    t0 = time.perf_counter()
+    x = torch.from_numpy(gm.pad_images(images)).cuda()
+    offsets, hooks = {}, []
+    for name, m in model.named_modules():
+        if isinstance(m, DeformConvBlock):
+            stage = name.split(".")[1].split("_")[0]
+            hooks.append(m.conv_offset.register_forward_hook(
+                lambda _m, _i, out, s=stage: offsets.setdefault(s, []).append(out.abs().mean())))
+    try:
+        calls = capture_request(lambda: model(x))
+    finally:
+        for h in hooks:
+            h.remove()
+    if len(calls["nms_keep"]) != HTC_NMS_PER_CAMERA * HTC_CAMS:
+        fail(f"the HTC request made {len(calls['nms_keep'])} nms_keep calls")
+    shapes = {}
+    for i, call in enumerate(calls["nms_keep"]):
+        c, n = call[1].shape
+        role = "rpn" if i % HTC_NMS_PER_CAMERA == 0 else "classes"
+        res = replay_nms_keep(call, "htc_kernel_calls", camera=i // HTC_NMS_PER_CAMERA, role=role)
+        shapes.setdefault(f"C{c}_N{n}", []).append(res)
+    per_shape = {}
+    for key, rs in shapes.items():
+        flop, byte = sum(r["flop"] for r in rs), sum(r["byte"] for r in rs)
+        per_shape[key] = dict(calls=len(rs), max_abs_err=0.0,
+                              **{k: sum(r[k] for r in rs) / len(rs)
+                                 for k in ("ms", "plain_ms", "bound_ms")},
+                              bound_by=bound(flop, byte, PEAK_F32_FLOPS)[1])
+    mean_offset = {s: float(torch.stack(v).mean()) for s, v in offsets.items()}
+    log({"phase": "htc_kernels", "nms_keep_per_shape": per_shape,
+         "mean_abs_offset_per_stage": {k: round(v, 4) for k, v in mean_offset.items()},
+         "seconds": round(time.perf_counter() - t0, 3)})
+    return per_shape
+
+
+def htc_phase(wrappers) -> dict:
+    """The default HTC (ResNeXt-101 64 x 4d with DCN at c3-c5, random
+    weights from seed 0, offsets non-zero): the full-depth check at 256 x
+    448, four full-width requests (seeds 0, 1, 2, 0) and every K3 call of
+    one. cuDNN runs deterministic algorithms here (the repeat is held
+    bitwise), f32 without TF32. Returns the K3 numbers per shape and the
+    launches per request."""
+    t0 = time.perf_counter()
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True,
+                                    allow_tf32=False):
+        cpu_model = htc_model(0)
+        model = copy.deepcopy(cpu_model).cuda()
+        log({"phase": "htc_setup", "parameters": sum(p.numel() for p in model.parameters()),
+             "seconds": round(time.perf_counter() - t0, 3)})
+        htc_depth_check(model, cpu_model)
+        del cpu_model
+        requests = [(s, htc_images(s, HTC_CAMS, HTC_IMG_HW)) for s in REQUEST_SEEDS]
+        per_request = htc_serve(model, requests, wrappers)
+        per_shape = htc_check_kernels(model, requests[0][1])
+    del model
+    torch.cuda.empty_cache()
+    log({"phase": "htc", "seconds": round(time.perf_counter() - t0, 3)})
+    return dict(per_shape=per_shape, per_request=per_request)
+
+
 KERNEL_INFO = {
     "gather_conv": ("fullysparsefusion_tpu_torch/csrc/gather_conv.cu",
                     "fullysparsefusion_tpu/ops/pallas_kernels.py:366"),
@@ -2062,6 +2329,9 @@ def main() -> int:
     small_train_reference_check()
     small_fsd_reference_check()
     small_two_stage_reference_check()
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True,
+                                    allow_tf32=False):
+        small_htc_reference_check()
 
     cfg = bench_config()
     t0 = time.perf_counter()
@@ -2104,6 +2374,7 @@ def main() -> int:
     fsd = fsd_phase(wrappers)
     two_stage = two_stage_phase(wrappers)
     sst_phase()
+    htc = htc_phase(wrappers)
     entries = []
     for name, st in stats.items():
         source, replaces = KERNEL_INFO[name]
@@ -2143,6 +2414,9 @@ def main() -> int:
             entry["two_stage"]["train_backward"] = {"ms": bwd["ms"], "plain_ms": bwd["plain_ms"],
                                                     "bound_ms": bwd["bound_ms"],
                                                     "max_abs_err": bwd["err"]}
+        entry["htc_launches_per_request"] = htc["per_request"][name]
+        if name == "nms_keep":
+            entry["htc"] = htc["per_shape"]
         entries.append(entry)
     log({"phase": "total", "seconds": round(time.perf_counter() - t_start, 3)})
     log({"kernels": entries})

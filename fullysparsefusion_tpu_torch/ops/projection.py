@@ -1,5 +1,6 @@
-"""LiDAR → image projection and the compact instance-mask lookup (port of
-``ops/projection.py``: ``project_points_2d`` and ``points_in_mask_compact``)."""
+"""LiDAR → image projection and the instance-mask lookups (port of
+``ops/projection.py``: ``project_points_2d``, ``points_in_mask`` and
+``points_in_mask_compact``)."""
 from __future__ import annotations
 
 from typing import Tuple
@@ -19,6 +20,35 @@ def project_points_2d(xyz: torch.Tensor, lidar2img: torch.Tensor, img_h: int, im
     v = proj[..., 1] / z / img_h
     valid = (depth > 1e-3) & (u > 0.0) & (u < 1.0) & (v > 0.0) & (v < 1.0)
     return torch.stack([u, v], dim=-1), valid
+
+
+def points_in_mask(
+    xyz: torch.Tensor,         # [N, 3]
+    batch_idx: torch.Tensor,   # [N]
+    lidar2img: torch.Tensor,   # [B, num_cams, 4, 4]
+    masks: torch.Tensor,       # [B, num_cams, H, W, num_cls] int32 packed
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-point instance ids and 2D scores from every camera: ([N, cams,
+    cls] i32 ids, [N, cams, cls] f32 scores; id 0 = no instance). Each point
+    is projected through its own sample's matrices; pixel values are ``id |
+    score_u8 << 8``; nearest-pixel lookup (floor of the projected
+    coordinate), 0 where the depth is ≤ 1e-3 or the pixel is off the
+    image."""
+    _, num_cams, img_h, img_w, num_cls = masks.shape
+    pts4 = torch.cat([xyz, torch.ones_like(xyz[:, :1])], dim=1)
+    proj = torch.einsum("nd,nckd->nck", pts4, lidar2img[batch_idx.long()])  # [N, C, 4]
+    depth = proj[..., 2]
+    z = depth.clamp(1e-5, 1e5)
+    px = torch.floor(proj[..., 0] / z).to(torch.int32)
+    py = torch.floor(proj[..., 1] / z).to(torch.int32)
+    valid = (depth > 1e-3) & (px >= 0) & (px < img_w) & (py >= 0) & (py < img_h)
+    px = px.clamp(0, img_w - 1)
+    py = py.clamp(0, img_h - 1)
+    base = batch_idx[:, None].long() * num_cams + torch.arange(num_cams, device=xyz.device)
+    idx = (base * img_h + py) * img_w + px                                  # [N, C]
+    val = masks.reshape(-1, num_cls)[idx]                                   # [N, C, cls]
+    val = torch.where(valid[:, :, None], val, torch.zeros_like(val))
+    return (val & 0xFF).to(torch.int32), (val >> 8).float() * (1.0 / 255.0)
 
 
 def points_in_mask_compact(

@@ -264,3 +264,40 @@ def test_projection_and_compact_mask_lookup_match_jax():
                           cam.img_h, cam.img_w)
     eq(ids, rids), eq(scores, rscores)
     assert (ids > 0).any()
+
+
+def _fsf_mask_inputs():
+    """``tests/test_fsf.py::test_points_in_mask_compact_matches_full``'s
+    inputs: the tiny config's seed-3 scene and its camera masks."""
+    from fixtures import make_camera_data, make_scene
+    from fullysparsefusion_tpu.config import tiny_fsf_config
+
+    cfg = tiny_fsf_config()
+    pb, gt = make_scene(seed=3, n_cap=cfg.caps.points, max_gt=cfg.caps.max_gt)
+    cam = make_camera_data(pb, gt, num_classes=cfg.num_classes)
+    masks5 = np.asarray(cam.masks).reshape(cam.lidar2img.shape[0], cam.num_cams, cam.img_h,
+                                           cam.img_w, cam.num_cls)
+    return pb, cam, masks5
+
+
+def test_full_mask_lookup_matches_jax_and_compact():
+    from fullysparsefusion_tpu.ops.projection import points_in_mask as j_points_in_mask
+
+    pb, cam, masks5 = _fsf_mask_inputs()
+    xyz, batch = np.asarray(pb.xyz), np.asarray(pb.batch_idx)
+    l2i = np.asarray(cam.lidar2img)
+    ids, scores = projection.points_in_mask(t(xyz), t(batch), t(l2i), t(masks5.astype(np.int32)))
+    rids, rscores = j_points_in_mask(jnp.asarray(xyz), jnp.asarray(batch), cam.lidar2img,
+                                     jnp.asarray(masks5))
+    eq(ids, rids), eq(scores, rscores)
+    assert ids.shape == (xyz.shape[0], cam.num_cams, cam.num_cls) and (ids > 0).any()
+    # a point of this rig projects into at most two cameras, so the two
+    # lowest-index cameras it projects into carry every hit: per point and
+    # class, the (id, score) entries over the cameras equal the compact's
+    cids, cscores = projection.points_in_mask_compact(
+        t(xyz), t(batch), t(l2i), t(np.asarray(cam.masks).astype(np.int32)), cam.img_h,
+        cam.img_w)
+    full = (ids.double() * 256 + torch.round(scores.double() * 255)).sort(1, descending=True)
+    comp = (cids.double() * 256 + torch.round(cscores.double() * 255)).sort(1, descending=True)
+    eq(full.values[:, 2:], torch.zeros_like(full.values[:, 2:]))
+    eq(full.values[:, :2], comp.values)

@@ -1,26 +1,33 @@
 #!/usr/bin/env python3
 """Where one request's time goes in the PyTorch port, on one NVIDIA GPU.
 
-    python3 tools/profile_torch_request.py [--requests 3] [--model fsf|fsd|two_stage]
+    python3 tools/profile_torch_request.py [--requests 3] [--model fsf|fsd|two_stage|htc]
 
 Builds the kernels and the full-width FSF of ``chip_smoke.py`` (``--model
 fsd``: its six-task single-stage FSD; ``--model two_stage``: its two-stage
-FSD) with random weights (seed 0) on its bench-scale scene (seed 0), warms
-up, then:
+FSD) with random weights (seed 0) on its bench-scale scene (seed 0); or
+(``--model htc``) its default HTC (random weights from seed 0, DCN offsets
+non-zero) on one sample's six 900 x 1,600 cameras (seed 0), with the paste
+and paint on the host; warms up, then:
 
 1. spans: CUDA events around every top-level submodule and around the
    functions the forward calls outside them (FSF: mask lookup, RoI pooling,
    foreground extraction, ``get_bboxes``; FSD: foreground extraction,
    ``get_bboxes``, and per task its decode + NMS and, inside it, the
    rotated IoU matrix; two-stage: the first stage's parts, the RCNN's RoI
-   pooling, SIR and MLPs, ``get_bboxes`` and its IoU matrix), averaged over
+   pooling, SIR and MLPs, ``get_bboxes`` and its IoU matrix; HTC: the
+   backbone and each of its stages C2-C5, FPN, the RPN head, the proposals
+   (their NMS nested), the semantic head, each cascade stage's RoI
+   features and bbox head, the class NMS, the mask RoI features and mask
+   heads, the box IoU matrices, and on the host the paste and the paint),
+   averaged over
    ``--requests`` requests. Spans are
    stream time between the two events, idle gaps included, so they add up
    to the request's time; nested spans are listed with their parent.
 2. kernels: ``torch.profiler`` over one request; device time by kernel name
    (top 15) and the device's busy share (the sum of kernel times over the
    request's stream time).
-3. k1_plan: the per-rulebook glue of the gather-conv kernel
+3. k1_plan (not for HTC, which runs no sparse conv): the per-rulebook glue of the gather-conv kernel
    (``plan_rulebook``): its calls per request, and the device launches and
    stream time of each call, from ``torch.profiler`` around the call alone.
 
@@ -90,7 +97,7 @@ def wrap(owner, attr, name, spans):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--requests", type=int, default=3)
-    ap.add_argument("--model", choices=("fsf", "fsd", "two_stage"), default="fsf")
+    ap.add_argument("--model", choices=("fsf", "fsd", "two_stage", "htc"), default="fsf")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_request: no CUDA device", file=sys.stderr)
@@ -104,6 +111,8 @@ def main() -> int:
         request, spans = fsd_request_spans()
     elif args.model == "two_stage":
         request, spans = two_stage_request_spans()
+    elif args.model == "htc":
+        request, spans = htc_request_spans()
     else:
         request, spans = fsf_request_spans()
     total = 0.0
@@ -143,7 +152,8 @@ def main() -> int:
                       "kernel_launches": sum(v[1] for v in by_kernel.values()),
                       "top": [{"name": k[:90], "ms": round(v[0], 3), "calls": v[1]}
                               for k, v in top]}), flush=True)
-    print(json.dumps(plan_glue(request)), flush=True)
+    if args.model != "htc":
+        print(json.dumps(plan_glue(request)), flush=True)
     return 0
 
 
@@ -229,6 +239,70 @@ def two_stage_request_spans():
     wrap(nms, "boxes_iou_bev", "get_bboxes.iou", spans)
     wrap(model, "get_bboxes", "get_bboxes", spans)
     wrap(model, "forward", "forward", spans)
+    return request, spans
+
+
+def counted_wrap(owner, attr, names, spans):
+    """Like :func:`wrap`, the i-th call of a cycle of ``len(names)`` calls
+    named ``names[i]``."""
+    fn, calls = getattr(owner, attr), [0]
+
+    def timed(*a, **k):
+        name = names[calls[0] % len(names)]
+        calls[0] += 1
+        spans.start(name)
+        out = fn(*a, **k)
+        spans.stop(name)
+        return out
+
+    setattr(owner, attr, timed)
+
+
+def htc_request_spans():
+    """HTC's request (one sample's six cameras through the model, then the
+    paste and the paint on the host) and its spans. cuDNN deterministic, as
+    in ``chip_smoke.py``."""
+    import chip_smoke
+    from fullysparsefusion_tpu_torch import generate_masks as gm
+    from fullysparsefusion_tpu_torch.models import htc
+    from fullysparsefusion_tpu_torch.ops import nms
+
+    torch.backends.cudnn.deterministic = True
+    model = chip_smoke.htc_model(0).cuda()
+    images = chip_smoke.htc_images(0, chip_smoke.HTC_CAMS, chip_smoke.HTC_IMG_HW)
+    x = torch.from_numpy(gm.pad_images(images)).cuda()
+
+    def request():
+        with torch.inference_mode():
+            dets = model(x)
+        pasted = gm.paste_detections(dets, chip_smoke.HTC_IMG_HW, chip_smoke.HTC_SCORE_THR)
+        return gm.paint_sample(pasted, chip_smoke.HTC_CAMS, model.num_classes,
+                               chip_smoke.HTC_IMG_HW)
+
+    warm(request)
+    spans = Spans()
+    bb = model.backbone
+    hook_module(bb, "backbone", spans)
+    for si, nblocks in enumerate(bb.depth_blocks):
+        name = f"backbone.c{si + 2}"
+        getattr(bb, f"layer{si + 1}_0").register_forward_pre_hook(
+            lambda *_, _n=name: spans.start(_n))
+        getattr(bb, f"layer{si + 1}_{nblocks - 1}").register_forward_hook(
+            lambda *_, _n=name: spans.stop(_n))
+    for sub in ("neck", "rpn_head", "semantic_head"):
+        hook_module(getattr(model, sub), sub, spans)
+    for i in range(3):
+        hook_module(model.bbox_head(i), f"cascade{i}.bbox_head", spans)
+    wrap(model, "_proposals", "rpn.proposals", spans)
+    wrap(nms, "nms_mask_from_iou", "rpn.proposals.nms", spans)
+    counted_wrap(model, "roi_feats", [f"cascade{i}.roi_feats" for i in range(3)]
+                 + ["mask.roi_feats"], spans)
+    wrap(model, "_multiclass_nms", "class_nms", spans)
+    wrap(model, "mask_logits", "mask.heads", spans)
+    wrap(htc, "axis_aligned_iou_2d", "box_iou", spans)
+    wrap(model, "forward", "forward", spans)
+    wrap(gm, "paste_detections", "host.paste", spans)
+    wrap(gm, "paint_sample", "host.paint", spans)
     return request, spans
 
 
