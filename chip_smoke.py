@@ -99,6 +99,21 @@ Phases, each of which ends the script with a non-zero exit on failure:
    held to its plain version and timed per shape, and the mean DCN offset
    per stage. At the start, the tiny HTC's taps and detections on the GPU
    against the CPU.
+13. av2: full-width FSF at Argoverse 2's shape (``av2_fsf_config``: 26
+   classes in six groups, 7 ring cameras at 1,024 x 775, code size 8, 4-dim
+   points, the 2,048 x 2,048 x 32 grid) at the JAX package's AV2 bench
+   capacities, random weights from seed 0, on that bench's synthetic scene:
+   the seed-0 scene's active voxels per UNet stage beside the caps; four
+   requests (seeds 0, 1, 2, 0; the repeat bitwise equal; K1, K2 and K3
+   launched in each; ``input_ms`` the host's conversion and copy of the
+   points and the packed mask planes); every K1, K2 and K3 call of one held
+   to its plain version and graph-timed, none below its bound (K3 at C =
+   26); two warm-up and three timed train steps on the seed-0 scene and its
+   48 GT boxes, the backward's K1 and ``dw_per_tap`` calls held; then the
+   normal entry point: the scene written as an AV2 info pickle and
+   ``.bin``, read by ``data.av2.AV2Reader``, collated by
+   ``data.pipelines.collate_scene``, served, turned into AV2 rows
+   (``boxes_to_av2_rows``) and scored by ``eval.av2_detection.evaluate_av2``.
 
 The last lines are a ``{"kernels": [...]}`` JSON object, the card's name and
 power limit from ``nvidia-smi``, and ``{"ok": true, "device": {...}}``.
@@ -606,7 +621,7 @@ def replay_gather_conv(calls, phase: str) -> dict:
     log({"phase": phase, "kernel": "gather_conv", "calls": rows_out})
     return dict(max_abs_err=tot["err"], ms=tot["ms"], plain_ms=tot["plain_ms"],
                 bound_ms=tot["bound_ms"], bound_by=bound(tot["flop"], tot["byte"],
-                                                         PEAK_BF16_FLOPS)[1])
+                                                         PEAK_BF16_FLOPS)[1], calls=rows_out)
 
 
 def replay_ccl_roots(call, phase: str) -> dict:
@@ -762,8 +777,9 @@ def train_setup(cfg, device="cuda"):
 TRAIN_WARMUP, TRAIN_STEPS = 2, 5
 
 
-def train(model, opt, batch, wrappers, must_train=MUST_TRAIN, phase="train", held=None):
-    """Two warm-up steps, then five timed ones with the launch counters
+def train(model, opt, batch, wrappers, must_train=MUST_TRAIN, phase="train", held=None,
+          steps=TRAIN_STEPS):
+    """Two warm-up steps, then ``steps`` timed ones with the launch counters
     zeroed just before and read just after; every loss must be finite, the
     sum of the ``held`` loss terms (None: the summed loss) must fall from
     the first timed step to the last, and each submodule of ``must_train``
@@ -782,7 +798,7 @@ def train(model, opt, batch, wrappers, must_train=MUST_TRAIN, phase="train", hel
     plans0 = sparse_conv.plan_rulebook.calls
     totals, watched, split = [], [], {"forward_ms": [], "backward_ms": [], "optimizer_ms": []}
     k1 = {"forward": [], "backward": []}
-    for step in range(TRAIN_WARMUP, TRAIN_WARMUP + TRAIN_STEPS):
+    for step in range(TRAIN_WARMUP, TRAIN_WARMUP + steps):
         events = {ph: torch.cuda.Event(enable_timing=True)
                   for ph in ("start", "forward", "backward", "optimizer")}
         k1_at = {}
@@ -824,15 +840,15 @@ def train(model, opt, batch, wrappers, must_train=MUST_TRAIN, phase="train", hel
     for name in ("gather_conv", "dw_per_tap", "ccl_roots"):
         if launches[name] <= 0:
             fail(f"kernel {name} was not launched on the train path")
-    per_step = {name: n / TRAIN_STEPS for name, n in launches.items()}
-    log({"phase": phase, "steps": TRAIN_STEPS, "loss_first": totals[0], "loss_last": totals[-1],
+    per_step = {name: n / steps for name, n in launches.items()}
+    log({"phase": phase, "steps": steps, "loss_first": totals[0], "loss_last": totals[-1],
          **({} if held is None else {"held": held, "held_first": watched[0],
                                      "held_last": watched[-1]}),
          "mean_ms": {k: round(sum(v) / len(v), 3) for k, v in split.items()},
          "peak_mem_mib": round(torch.cuda.max_memory_allocated() / 2**20, 1),
          "launches_per_step": per_step,
          "gather_conv_per_step": {k: sum(v) / len(v) for k, v in k1.items()},
-         "plan_rulebook_per_step": (sparse_conv.plan_rulebook.calls - plans0) / TRAIN_STEPS,
+         "plan_rulebook_per_step": (sparse_conv.plan_rulebook.calls - plans0) / steps,
          "parameters": sum(p.numel() for p in model.parameters())})
     return launches, {k: sum(v) / len(v) for k, v in k1.items()}
 
@@ -891,7 +907,7 @@ def check_train_kernels(model, opt, batch, step: int, phase="train_kernel_calls"
         fail("the backward ran no K1 call with more than 256 output channels")
     log({"phase": phase, "kernel": "gather_conv", "role": "d_feats",
          "calls": rows_out, "ms": round(tot["ms"], 4), "bound_ms": round(tot["bound_ms"], 5)})
-    results["gather_conv_bwd"] = tot
+    results["gather_conv_bwd"] = dict(tot, calls=rows_out)
 
     rows_out = []
     tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, bmm_ms=0.0, err=0.0, flop=0.0, byte=0.0,
@@ -936,7 +952,7 @@ def check_train_kernels(model, opt, batch, step: int, phase="train_kernel_calls"
     results["dw_per_tap"] = dict(
         max_abs_err=tot["err"], ms=tot["ms"], plain_ms=tot["plain_ms"], bound_ms=tot["bound_ms"],
         bound_by=bound(tot["flop"], tot["byte"], PEAK_BF16_FLOPS)[1], bmm_ms=tot["bmm_ms"],
-        tile_fill=tile_fill)
+        tile_fill=tile_fill, calls=rows_out)
     return results
 
 
@@ -2300,6 +2316,285 @@ def htc_phase(wrappers) -> dict:
     return dict(per_shape=per_shape, per_request=per_request)
 
 
+# -- Argoverse 2 -----------------------------------------------------------------
+
+# the JAX package's AV2 bench capacities (tools/bench_av2.py, batch 1) and
+# its per-stage active-set capacities
+AV2_CAPS = dict(
+    points=131072, voxels=57344, prevox=98304, fg_per_group=4096,
+    cluster_voxels_per_group=1024, clusters=1024, max_gt=128,
+    frustum_points=16384, frustum_objects=256, roi_points=32768, max_roi_points=512,
+)
+AV2_STAGE_CAPS = (57344, 122880, 143360, 88576, 32768)
+# the true per-stage counts that tools/bench_av2.py's comment gives for the
+# JAX package's scene (stages 0-3), printed beside the port's; the JAX
+# package computes 101,421 at stage 1 on the CPU today, as the port does
+# (tests/test_torch_av2.py)
+AV2_BENCH_COUNTS = (47281, 101419, 119199, 73537)
+# a generous cap per stage, so that no stage clips while counting
+AV2_COUNT_CAPS = (98304, 163840, 163840, 131072, 65536)
+AV2_TRAIN_STEPS = 3
+
+
+def av2_config():
+    """The in-repo ``av2_fsf_config`` at the AV2 bench's capacities."""
+    from fullysparsefusion_tpu_torch.config import Capacities, av2_fsf_config
+
+    cfg = av2_fsf_config(Capacities(**AV2_CAPS))
+    seg = dataclasses.replace(cfg.fsd.segmentor, unet_stage_capacities=AV2_STAGE_CAPS)
+    return dataclasses.replace(cfg, fsd=dataclasses.replace(cfg.fsd, segmentor=seg))
+
+
+def av2_scene(seed: int, cfg):
+    """The JAX package's AV2 bench scene and its seven cameras (NumPy)."""
+    from fullysparsefusion_tpu_torch import synthetic as S
+
+    return S.make_av2_scene_arrays(seed, n_cap=cfg.caps.points, max_gt=cfg.caps.max_gt,
+                                   num_classes=cfg.num_classes)
+
+
+def hold_bound(what: str, ms: float, bound_ms: float) -> None:
+    """A measured time below the least time the card could take means the
+    timing or the cost model is wrong."""
+    if not ms >= bound_ms:
+        fail(f"{what}: {ms:.6g} ms is below its bound of {bound_ms:.6g} ms")
+
+
+def av2_stage_counts(cfg, pb) -> None:
+    """Each UNet stage's true active voxels on the seed-0 scene (voxelize
+    and the strided conv's output sets, at generous caps) beside its
+    capacity, whether the capacity clips it, and the path its convs take
+    (the occupancy rule of ``sparse_conv.use_dense_conv``)."""
+    from fullysparsefusion_tpu_torch.ops.sparse_conv import (
+        SparseTensor, downsample_coords, use_dense_conv)
+    from fullysparsefusion_tpu_torch.ops.voxelize import grid_dims, voxelize_points
+
+    seg_cfg = cfg.fsd.segmentor
+    seg, _, vb, vc = voxelize_points(pb.xyz, pb.batch_idx, pb.valid, seg_cfg.voxel_size,
+                                     seg_cfg.point_cloud_range, AV2_COUNT_CAPS[0])
+    dims = grid_dims(seg_cfg.voxel_size, seg_cfg.point_cloud_range)
+    st = SparseTensor(feats=torch.zeros(AV2_COUNT_CAPS[0], 1, device=pb.points.device),
+                      coords=vc, batch=vb, valid=seg.seg_valid, dims=dims, batch_size=1)
+    counts_, all_dims = [int(st.valid.sum())], [dims]
+    for i, pad in enumerate(seg_cfg.unet_strided_paddings):
+        oc, ob, ov, od = downsample_coords(st, (3, 3, 3), (2, 2, 2), pad, AV2_COUNT_CAPS[i + 1])
+        st = SparseTensor(feats=torch.zeros(AV2_COUNT_CAPS[i + 1], 1, device=oc.device),
+                          coords=oc, batch=ob, valid=ov, dims=od, batch_size=1)
+        counts_.append(int(ov.sum()))
+        all_dims.append(od)
+    paths = []
+    for i, (cap, d) in enumerate(zip(AV2_STAGE_CAPS, all_dims)):
+        ch = seg_cfg.unet_encoder_channels[i][-1]
+        stub = SparseTensor(feats=torch.empty(cap, ch, device="meta"), coords=None, batch=None,
+                            valid=None, dims=d, batch_size=1)
+        paths.append("dense" if use_dense_conv(stub, ch, seg_cfg.unet_dense_min_occupancy)
+                     else "gather")
+    if any(c >= cap for c, cap in zip(counts_, AV2_COUNT_CAPS)):
+        fail(f"AV2 stage counts {counts_} reach the counting caps {AV2_COUNT_CAPS}")
+    log({"phase": "av2_stages", "active_voxels": counts_, "caps": list(AV2_STAGE_CAPS),
+         "clipped": [c >= cap for c, cap in zip(counts_, AV2_STAGE_CAPS)],
+         "dims_xyz": [list(d) for d in all_dims], "conv_path": paths,
+         "jax_bench_comment_counts": list(AV2_BENCH_COUNTS)})
+
+
+def av2_serve(model, requests, wrappers) -> dict:
+    """One request per seed: the scene's NumPy arrays converted and copied
+    to the card (``input_ms``: the points and the seven cameras' packed
+    planes, ``[7 · 1,024 · 775, 26]`` int32), then forward + get_bboxes
+    (``gpu_ms`` by CUDA events, ``host_ms`` until the detections reach the
+    host), each with the launch counters zeroed just before and read just
+    after: K1, K2 and K3 must launch. The repeat of seed 0 must give its
+    detections bitwise. Returns the mean launches per request."""
+    from fullysparsefusion_tpu_torch import synthetic as S
+
+    t0 = time.perf_counter()
+    dets, launches = [], []
+    groups = model.cfg.fsd.num_groups
+    for seed, (sc, cam) in requests:
+        torch.cuda.synchronize()
+        t_in = time.perf_counter()
+        pb, cd = S.fsf_inputs(sc, cam, device="cuda")
+        torch.cuda.synchronize()
+        input_ms = (time.perf_counter() - t_in) * 1e3
+        torch.cuda.reset_peak_memory_stats()
+        zero(wrappers)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t_req = time.perf_counter()
+        start.record()
+        with torch.inference_mode():
+            res = model(pb, cd, 1)
+            det = model.get_bboxes(res, 1)
+        end.record()
+        det = type(det)(*[t.cpu() for t in det])  # the answer reaches the host
+        host_ms = (time.perf_counter() - t_req) * 1e3
+        torch.cuda.synchronize()
+        launches.append(counts(wrappers))
+        for name, t in zip(det._fields, det):
+            if t.is_floating_point() and not torch.isfinite(t).all():
+                fail(f"AV2 request seed {seed}: non-finite {name}")
+        if det.valid.shape != (1, model.cfg.refined_head.max_num) or det.boxes.shape[-1] != 7:
+            fail(f"AV2 request seed {seed}: detections shape {tuple(det.boxes.shape)}")
+        if min(launches[-1][k] for k in ("gather_conv", "ccl_roots", "nms_keep")) <= 0:
+            fail(f"AV2 request seed {seed}: launches {launches[-1]}")
+        fsd = res["fsd"]
+        per_group = torch.bincount(fsd["cluster_group"][fsd["cluster_valid"]].long(),
+                                   minlength=groups).tolist()
+        log({"phase": "av2_request", "seed": seed, "detections": int(det.valid.sum()),
+             "camera_queries": int(res["frustum"]["obj_valid"].sum()),
+             "lidar_queries": int(fsd["num_clusters"]), "clusters_per_group": per_group,
+             "fg_points": int(fsd["num_fg_points"]),
+             "input_ms": round(input_ms, 3), "gpu_ms": round(start.elapsed_time(end), 3),
+             "host_ms": round(host_ms, 3),
+             "peak_mem_mib": round(torch.cuda.max_memory_allocated() / 2**20, 1),
+             "mask_planes_mib": round(cd.masks.numel() * 4 / 2**20, 1),
+             "launches": launches[-1]})
+        dets.append(det)
+        del pb, cd, res
+    first, again = dets[0], dets[-1]
+    for name, a, b in zip(first._fields, first, again):
+        if not torch.equal(a, b):
+            fail(f"re-run of AV2 request seed 0 changed {name}")
+    per_request = {k: sum(n[k] for n in launches) / len(launches) for k in launches[0]}
+    log({"phase": "av2_serve", "requests": len(requests), "launches_per_request": per_request,
+         "seconds": round(time.perf_counter() - t0, 3)})
+    return per_request
+
+
+def av2_check_kernels(model, request) -> dict:
+    """Every K1, K2 and K3 call of one AV2 request held to its plain version
+    (K1 within ``K1_RTOL``, K2 and K3 bitwise) and graph-timed, each beside
+    its bound (K3 at C = 26)."""
+    t0 = time.perf_counter()
+    calls = capture_request(lambda: model.get_bboxes(model(*request, 1), 1))
+    results = {"gather_conv": replay_gather_conv(calls["gather_conv"], "av2_kernel_calls")}
+    for c in results["gather_conv"]["calls"]:
+        hold_bound(f"AV2 K1 [{c['n_out']} x {c['cin']} -> {c['cout']}]", c["ms"], c["bound_ms"])
+    (call,) = calls["ccl_roots"]
+    results["ccl_roots"] = replay_ccl_roots(call, "av2_kernel_calls")
+    (call,) = calls["nms_keep"]
+    if call[1].shape[0] != model.cfg.num_classes:
+        fail(f"the AV2 decode's K3 call has C = {call[1].shape[0]}")
+    results["nms_keep"] = replay_nms_keep(call, "av2_kernel_calls")
+    del results["nms_keep"]["flop"], results["nms_keep"]["byte"]
+    for name in ("ccl_roots", "nms_keep"):
+        hold_bound(f"AV2 {name}", results[name]["ms"], results[name]["bound_ms"])
+    log({"phase": "av2_kernels", "calls": {k: len(v) for k, v in calls.items()},
+         "seconds": round(time.perf_counter() - t0, 3)})
+    return results
+
+
+def av2_entry_point(model, cfg, sc, cam) -> None:
+    """The normal entry point: the seed-0 scene written as an AV2 info
+    pickle and a ``.bin`` of 4-dim points, read back by ``AV2Reader``
+    (eval form), collated by ``collate_scene`` at the bench capacities,
+    served, turned into AV2 detection rows and scored by ``evaluate_av2``
+    against the reader's GT."""
+    import pickle
+
+    from fullysparsefusion_tpu_torch import synthetic as S
+    from fullysparsefusion_tpu_torch.config import AV2_CLASS_NAMES
+    from fullysparsefusion_tpu_torch.data.av2 import AV2Reader, boxes_to_av2_rows
+    from fullysparsefusion_tpu_torch.data.pipelines import collate_scene
+    from fullysparsefusion_tpu_torch.eval.av2_detection import evaluate_av2
+    from fullysparsefusion_tpu_torch.eval.detection import DetectionRecord
+
+    t0 = time.perf_counter()
+    n_gt = int(sc["gt_valid"][0].sum())
+    with tempfile.TemporaryDirectory() as root:
+        sc["points"][sc["valid"]].astype(np.float32).tofile(os.path.join(root, "lidar_0.bin"))
+        info = dict(lidar_path="lidar_0.bin", gt_boxes=sc["gt_boxes"][0, :n_gt, :7],
+                    gt_names=[AV2_CLASS_NAMES[int(c)] for c in sc["gt_labels"][0, :n_gt]],
+                    log_id="synthetic_seed0", timestamp_ns=0)
+        with open(os.path.join(root, "infos.pkl"), "wb") as f:
+            pickle.dump({"infos": [info]}, f)
+        reader = AV2Reader(os.path.join(root, "infos.pkl"), root, AV2_CLASS_NAMES, training=False,
+                           point_cloud_range=cfg.fsd.segmentor.point_cloud_range)
+        sample = reader.sample(0)
+    batch = collate_scene([sample], cfg.caps.points, cfg.caps.max_gt)
+    pb = S.to_point_batch(batch, device="cuda")
+    cd = S.to_camera_data(cam, device="cuda")
+    with torch.inference_mode():
+        det = model.get_bboxes(model(pb, cd, 1), 1)
+    det = type(det)(*[t[0].cpu().numpy() for t in det])
+    v = det.valid
+    rows = boxes_to_av2_rows(det.boxes[v], det.scores[v], det.labels[v], AV2_CLASS_NAMES,
+                             sample["log_id"], sample["timestamp_ns"])
+    if len(rows) != int(v.sum()) or not all(math.isfinite(r["qw"]) for r in rows):
+        fail("boxes_to_av2_rows: wrong rows")
+    metrics = evaluate_av2([DetectionRecord(det.boxes[v], det.scores[v], det.labels[v],
+                                            sample["gt_boxes"], sample["gt_labels"])],
+                           cfg.num_classes, AV2_CLASS_NAMES)
+    if not (math.isfinite(metrics["mAP"]) and math.isfinite(metrics["CDS"])):
+        fail(f"evaluate_av2 gave {metrics['mAP']}, {metrics['CDS']}")
+    log({"phase": "av2_entry_point", "points_read": int(len(sample["points"])),
+         "points_written": int(sc["valid"].sum()), "gt_boxes": int(len(sample["gt_labels"])),
+         "rows": len(rows), "mAP": metrics["mAP"], "CDS": metrics["CDS"],
+         "classes_scored": len(metrics["per_class"]),
+         "seconds": round(time.perf_counter() - t0, 3)})
+
+
+def av2_phase(wrappers) -> dict:
+    """Full-width FSF at AV2's shape (``av2_fsf_config``: 26 classes, 7 ring
+    cameras, code size 8, the 2,048 x 2,048 x 32 grid) at the AV2 bench's
+    capacities, random weights from seed 0: the seed-0 scene's per-stage
+    active voxels; four requests (seeds 0, 1, 2, 0); every K1, K2 and K3
+    call of one held to its plain version; two warm-up and three timed
+    train steps with the backward kernels held; the reader -> collate ->
+    serve -> rows -> metric path. Returns the kernel numbers and the
+    launches for the kernels line."""
+    from fullysparsefusion_tpu_torch import synthetic as S
+    from fullysparsefusion_tpu_torch.parallel import train as ptrain
+    from fullysparsefusion_tpu_torch.weights import build_fsf
+
+    t0 = time.perf_counter()
+    cfg = av2_config()
+    model = build_fsf(cfg, seed=0, device="cuda")
+    scenes = {s: av2_scene(s, cfg) for s in sorted(set(REQUEST_SEEDS))}
+    torch.cuda.synchronize()
+    log({"phase": "av2_setup", "parameters": sum(p.numel() for p in model.parameters()),
+         "classes": cfg.num_classes, "cameras": cfg.num_cams,
+         "code_size": cfg.refined_head.code_size, "points": int(scenes[0][0]["valid"].sum()),
+         "gt_boxes": int(scenes[0][0]["gt_valid"].sum()),
+         "seconds": round(time.perf_counter() - t0, 3)})
+    pb0, cd0 = S.fsf_inputs(*scenes[0], device="cuda")
+    av2_stage_counts(cfg, pb0)
+    per_request = av2_serve(model, [(s, scenes[s]) for s in REQUEST_SEEDS], wrappers)
+    stats = av2_check_kernels(model, (pb0, cd0))
+    av2_entry_point(model, cfg, *scenes[0])
+    del model
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    model = build_fsf(cfg, seed=0, device="cuda")
+    opt = ptrain.make_optimizer(model, base_lr=1e-4, total_steps=100,
+                                lr_mult_rules=TRAIN_LR_RULES)
+    gt = S.to_ground_truth(scenes[0][0])
+    batch = ptrain.Batch(pb0, cd0, gt, gt)
+    steps = []
+    with capture_results(ptrain, "train_step", steps):
+        train_launches, k1_per_step = train(model, opt, batch, wrappers, phase="av2_train",
+                                            steps=AV2_TRAIN_STEPS)
+    if any("vel" in k for _, losses, _ in steps for k in losses):
+        fail(f"the AV2 train step has a velocity loss: {sorted(steps[-1][1])}")
+    train_stats = check_train_kernels(model, opt, batch, TRAIN_WARMUP + AV2_TRAIN_STEPS,
+                                      "av2_train_kernel_calls")
+    for c in train_stats["dw_per_tap"]["calls"]:
+        hold_bound(f"AV2 dw_per_tap [{c['n_out']}: {c['cin']} x {c['cout']}]", c["ms"],
+                   c["bound_ms"])
+    for c in train_stats["gather_conv_bwd"]["calls"]:
+        hold_bound(f"AV2 K1 d_feats [{c['n_out']}: {c['cin']} -> {c['cout']}]", c["ms"],
+                   c["bound_ms"])
+    stats["dw_per_tap"] = train_stats["dw_per_tap"]
+    stats["gather_conv"]["train_backward"] = train_stats["gather_conv_bwd"]
+    log({"phase": "av2_train_seconds", "seconds": round(time.perf_counter() - t1, 3),
+         "gather_conv_per_step": k1_per_step})
+    del model, opt, batch, pb0, cd0, gt, steps
+    torch.cuda.empty_cache()
+    log({"phase": "av2", "seconds": round(time.perf_counter() - t0, 3)})
+    return dict(stats=stats, per_request=per_request,
+                train_per_step={k: v / AV2_TRAIN_STEPS for k, v in train_launches.items()})
+
+
 KERNEL_INFO = {
     "gather_conv": ("fullysparsefusion_tpu_torch/csrc/gather_conv.cu",
                     "fullysparsefusion_tpu/ops/pallas_kernels.py:366"),
@@ -2375,6 +2670,7 @@ def main() -> int:
     two_stage = two_stage_phase(wrappers)
     sst_phase()
     htc = htc_phase(wrappers)
+    av2 = av2_phase(wrappers)
     entries = []
     for name, st in stats.items():
         source, replaces = KERNEL_INFO[name]
@@ -2417,6 +2713,16 @@ def main() -> int:
         entry["htc_launches_per_request"] = htc["per_request"][name]
         if name == "nms_keep":
             entry["htc"] = htc["per_shape"]
+        ast = av2["stats"][name]
+        entry.update(av2_launches_per_request=av2["per_request"][name],
+                     av2_train_launches_per_step=av2["train_per_step"][name],
+                     av2={k: ast[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                              "bound_by") if k in ast})
+        if name == "gather_conv":
+            bwd = ast["train_backward"]
+            entry["av2"]["train_backward"] = {"ms": bwd["ms"], "plain_ms": bwd["plain_ms"],
+                                              "bound_ms": bwd["bound_ms"],
+                                              "max_abs_err": bwd["err"]}
         entries.append(entry)
     log({"phase": "total", "seconds": round(time.perf_counter() - t_start, 3)})
     log({"kernels": entries})

@@ -210,10 +210,70 @@ class FSFConfig:
         return self.fsd.num_classes
 
 
+AV2_CLASS_NAMES = (
+    "Regular_vehicle",
+    "Pedestrian", "Bicyclist", "Motorcyclist", "Wheeled_rider",
+    "Bollard", "Construction_cone", "Sign", "Construction_barrel",
+    "Stop_sign", "Mobile_pedestrian_crossing_sign",
+    "Large_vehicle", "Bus", "Box_truck", "Truck", "Vehicular_trailer",
+    "Truck_cab", "School_bus", "Articulated_bus", "Message_board_trailer",
+    "Bicycle", "Motorcycle", "Wheeled_device", "Wheelchair", "Stroller",
+    "Dog",
+)
+AV2_GROUPS = (
+    AV2_CLASS_NAMES[:1], AV2_CLASS_NAMES[1:5], AV2_CLASS_NAMES[5:11],
+    AV2_CLASS_NAMES[11:20], AV2_CLASS_NAMES[20:25], AV2_CLASS_NAMES[25:],
+)
+
+
 def nusc_fsf_config(caps: Optional[Capacities] = None) -> FSFConfig:
     """Production nuScenes FSF (reference FSF_nuScenes_config.py)."""
     fsd = FSDConfig(caps=caps or Capacities())
     return FSFConfig(fsd=fsd)
+
+
+def av2_fsf_config(caps: Optional[Capacities] = None) -> FSFConfig:
+    """Production Argoverse 2 FSF (reference FSF_AV2_config.py): 26 classes,
+    7 ring cameras, ±204.8 m range, code_size 8 (no velocity)."""
+    n = len(AV2_CLASS_NAMES)
+    seg = VoteSegmentorConfig(
+        num_classes=n,
+        point_dim=4,
+        voxel_size=(0.2, 0.2, 0.2),
+        point_cloud_range=(-204.8, -204.8, -3.2, 204.8, 204.8, 3.2),
+    )
+    common_attrs_no_vel = (
+        ("center", 3, 2, 128), ("dim", 3, 2, 128), ("rot", 2, 2, 128)
+    )
+    head = HeadConfig(num_classes=n, code_size=8, common_attrs=common_attrs_no_vel)
+    fsd = FSDConfig(
+        class_names=AV2_CLASS_NAMES,
+        group_names=AV2_GROUPS,
+        segmentor=seg,
+        head=head,
+        score_thresh=(0.4, 0.25, 0.25, 0.25, 0.25, 0.25),
+        cluster_voxel_sizes=(
+            (0.3, 0.3, 6.4), (0.05, 0.05, 6.4), (0.08, 0.08, 6.4),
+            (0.5, 0.5, 6.4), (0.1, 0.1, 6.4), (0.08, 0.08, 6.4),
+        ),
+        connected_dists=(0.6, 0.1, 0.15, 1.0, 0.2, 0.15),
+        caps=caps or Capacities(),
+    )
+    frustum_head = HeadConfig(
+        num_classes=n, code_size=8, common_attrs=common_attrs_no_vel,
+        in_channel=768 + 128, nms_thr=0.35, score_thr=0.01,
+    )
+    refined_head = HeadConfig(
+        num_classes=n, code_size=8, common_attrs=common_attrs_no_vel,
+        in_channel=1024, loss_cls_weight=2.0, nms_thr=0.35, score_thr=0.01,
+    )
+    return FSFConfig(
+        fsd=fsd,
+        num_cams=7,
+        frustum_head=frustum_head,
+        refined_head=refined_head,
+        refine_max_dist=(1.0,) * n,
+    )
 
 
 def tiny_fsf_config(**overrides) -> FSFConfig:

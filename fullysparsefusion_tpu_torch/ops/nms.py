@@ -87,6 +87,8 @@ def nms_mask_from_iou(iou, scores, valid, iou_thr: float) -> torch.Tensor:
 
 
 class NMSResult(NamedTuple):
+    """Batched: [B, max_num] leaves; one sample: [max_num]."""
+
     boxes: torch.Tensor   # [B, max_num, code]
     scores: torch.Tensor  # [B, max_num]
     labels: torch.Tensor  # [B, max_num] i32
@@ -116,6 +118,36 @@ def _topk_from_keeps(boxes, scores_cn, keeps, max_num):
     )
 
 
+def nms_bev_mask(boxes, scores, valid, iou_thr: float) -> torch.Tensor:
+    """Greedy rotated-BEV NMS keep mask [N] in the boxes' original order:
+    invalid rows are never kept and never suppress; IoU > ``iou_thr``
+    suppresses. One K3 launch."""
+    return nms_mask_from_iou(boxes_iou_bev(boxes, boxes), scores, valid, iou_thr)
+
+
+def _class_keeps(iou, scores, valid, iou_thr: float, score_thr: float):
+    """Per-class keep masks [C, N] in the original order over a shared IoU
+    matrix (one K3 launch for every class), and the scores as [C, N]."""
+    scores_cn = scores.T.contiguous()
+    valid_cn = valid[None, :] & (scores_cn > score_thr)
+    order, v = class_orders(scores_cn, valid_cn)
+    keep_sorted = nms_keep(iou.contiguous(), order, v.contiguous(), iou_thr)
+    keeps = torch.zeros_like(keep_sorted)
+    keeps.scatter_(1, order.long(), keep_sorted)
+    return keeps, scores_cn
+
+
+def multiclass_nms_bev(boxes, scores, valid, iou_thr: float, score_thr: float,
+                       max_num: int) -> NMSResult:
+    """mmdet3d's ``box3d_multiclass_nms`` for one sample: boxes [N, code],
+    per-class scores [N, C]; NMS per class channel (a box may survive under
+    several classes), then the top ``max_num`` (box, score, label) over all
+    channels. Returns [max_num] leaves."""
+    keeps, scores_cn = _class_keeps(boxes_iou_bev(boxes, boxes), scores, valid, iou_thr,
+                                    score_thr)
+    return _topk_from_keeps(boxes, scores_cn, keeps, max_num)
+
+
 def multiclass_nms_bev_batched(boxes, scores, valid, batch_idx, batch_size: int,
                                iou_thr: float, score_thr: float, max_num: int) -> NMSResult:
     """Per-sample multiclass rotated NMS for the whole batch in one pass:
@@ -123,12 +155,7 @@ def multiclass_nms_bev_batched(boxes, scores, valid, batch_idx, batch_size: int,
     per-sample scans. Returns [B, max_num] leaves."""
     iou = boxes_iou_bev(boxes, boxes)
     iou = torch.where(batch_idx[:, None] == batch_idx[None, :], iou, torch.zeros_like(iou))
-    scores_cn = scores.T.contiguous()
-    valid_cn = valid[None, :] & (scores_cn > score_thr)
-    order, v = class_orders(scores_cn, valid_cn)
-    keep_sorted = nms_keep(iou.contiguous(), order, v.contiguous(), iou_thr)
-    keeps = torch.zeros_like(keep_sorted)
-    keeps.scatter_(1, order.long(), keep_sorted)
+    keeps, scores_cn = _class_keeps(iou, scores, valid, iou_thr, score_thr)
     results = [
         _topk_from_keeps(boxes, scores_cn, keeps & (batch_idx == b)[None, :], max_num)
         for b in range(batch_size)

@@ -2,11 +2,11 @@
 coords plus a fixed-capacity group-by (port of ``ops/voxelize.py``)."""
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Dict, Sequence, Tuple
 
 import torch
 
-from .segment import SegmentInfo, unique_segments
+from .segment import SegmentInfo, segment_mean, unique_segments
 
 
 def voxel_coords(xyz: torch.Tensor, voxel_size: Sequence[float],
@@ -69,3 +69,13 @@ def voxelize_points(xyz, batch_idx, valid, voxel_size, pc_range, capacity
                             torch.zeros_like(seg.unique_keys))
     vox_coords, vox_batch = delinearize_coords(safe_keys, dims)
     return seg, coords, vox_batch, vox_coords
+
+
+def voxel_downsample(data: Dict[str, torch.Tensor], xyz, batch_idx, valid, voxel_size, pc_range,
+                     capacity: int) -> Tuple[Dict[str, torch.Tensor], torch.Tensor, torch.Tensor]:
+    """Voxel-grid dedup by mean (FSD's pre-voxelize): every array of ``data``
+    mean-reduced per voxel. Returns (reduced dict, voxel batch [capacity],
+    voxel valid [capacity])."""
+    seg, _, vox_batch, _ = voxelize_points(xyz, batch_idx, valid, voxel_size, pc_range, capacity)
+    out = {k: segment_mean(v, seg.seg_id, capacity, counts=seg.counts) for k, v in data.items()}
+    return out, vox_batch, seg.seg_valid

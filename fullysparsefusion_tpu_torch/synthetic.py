@@ -6,7 +6,9 @@ package's test fixtures (``make_scene``, ``make_lidar_scene``,
 The ``*_arrays`` functions return plain NumPy dicts; ``to_point_batch`` /
 ``to_camera_data`` / ``to_ground_truth`` move them into the port's
 containers on a device.
-``ccl_problem_arrays`` builds the CCL kernel's hard inputs.
+``make_av2_scene_arrays`` is the JAX package's Argoverse 2 bench scene and
+its seven ring cameras. ``ccl_problem_arrays`` builds the CCL kernel's hard
+inputs.
 """
 from __future__ import annotations
 
@@ -249,6 +251,20 @@ def make_camera_arrays(
             anno[b, row] = [u0, v0, u1, v1, 0.9, cls, ci, row, 1]
             row += 1
     return dict(masks=pack_mask_scores(masks, anno), anno=anno, lidar2img=lidar2img)
+
+
+def make_av2_scene_arrays(seed=0, n_cap=131072, max_gt=128, num_classes=26):
+    """(scene, cameras) of the JAX package's AV2 bench (``tools/bench_av2.py``),
+    batch 1: one dual-LiDAR frame over the larger area (±190 m, 64 rings,
+    48 facades, the two stacked LiDARs as 2 sweeps, 4-dim points, 48 GT
+    boxes) and seven ring cameras at 1,024 x 775 with fx 900."""
+    sc = make_lidar_scene_arrays(seed=seed, n_cap=n_cap, max_gt=max_gt, n_boxes=48,
+                                 num_classes=num_classes, point_dim=4, extent=190.0, n_rings=64,
+                                 pts_per_ring=1600, n_walls=48, sweeps=2)
+    cam = make_camera_arrays(sc["gt_boxes"], sc["gt_labels"], sc["gt_valid"], batch_size=1,
+                             num_cams=7, num_classes=num_classes, img_h=1024, img_w=775,
+                             max_anno=250, fx=900.0)
+    return sc, cam
 
 
 CCL_CASES = ("random", "reversed_chain", "grid", "coincident", "mixed_batch", "all_invalid")

@@ -1,6 +1,8 @@
 """The PyTorch port's ops against the JAX package's on the CPU: segments,
 voxelization, compaction, geometry, projection, and the plain versions of
-kernels K2 (CCL roots) and K3 (NMS keep masks). Integer and bool outputs
+kernels K2 (CCL roots) and K3 (NMS keep masks), the one-sample NMS entry
+points, ``voxel_downsample`` and the absolute-coordinate box coder. Integer
+and bool outputs
 must be equal; float outputs agree within 1e-5 (f32 on both sides, sums in
 another order). ``test_torch_kernels.py`` holds the CUDA kernels to the plain
 versions on a card."""
@@ -9,19 +11,24 @@ import numpy as np
 import pytest
 import torch
 
+from fullysparsefusion_tpu.core.coders import ABSPointBBoxCoder as JABSCoder
 from fullysparsefusion_tpu.ops import geometry as jgeo
 from fullysparsefusion_tpu.ops import segment as jseg
 from fullysparsefusion_tpu.ops.ccl import connected_components_bev
 from fullysparsefusion_tpu.ops.ccl import connected_components_bev_batched as j_ccl_batched
+from fullysparsefusion_tpu.ops.nms import multiclass_nms_bev as j_multiclass_nms_one
 from fullysparsefusion_tpu.ops.nms import multiclass_nms_bev_batched as j_multiclass_nms
+from fullysparsefusion_tpu.ops.nms import nms_bev_mask as j_nms_bev_mask
 from fullysparsefusion_tpu.ops.nms import nms_mask_from_iou as j_nms_mask
 from fullysparsefusion_tpu.ops.pallas_kernels import nms_scan_pallas
 from fullysparsefusion_tpu.ops.projection import points_in_mask_compact as j_pim
 from fullysparsefusion_tpu.ops.projection import project_points_2d as j_project
+from fullysparsefusion_tpu.ops.voxelize import voxel_downsample as j_voxel_downsample
 from fullysparsefusion_tpu.ops.voxelize import voxelize_points as j_voxelize
 from fullysparsefusion_tpu.utils.gather import masked_gather as j_masked_gather
+from fullysparsefusion_tpu_torch.core.coders import ABSPointBBoxCoder
 from fullysparsefusion_tpu_torch.ops import ccl, geometry, nms, projection, segment
-from fullysparsefusion_tpu_torch.ops.voxelize import voxelize_points
+from fullysparsefusion_tpu_torch.ops.voxelize import voxel_downsample, voxelize_points
 from fullysparsefusion_tpu_torch.synthetic import CCL_CASES, ccl_problem_arrays
 from fullysparsefusion_tpu_torch.utils.gather import masked_gather
 from test_torch_kernels import _boxes, _ccl_problems, t
@@ -97,6 +104,28 @@ def test_voxelize_points_exact():
         eq(getattr(seg, f), getattr(rseg, f))
     eq(coords, rcoords), eq(vb, rvb), eq(vc, rvc)
     assert int(rseg.num_segments) > 300       # overflow exercised
+
+
+@pytest.mark.parametrize("capacity", [200, 4000])
+def test_voxel_downsample_matches_jax(capacity):
+    """Mean per voxel of every array; ``capacity`` 200 overflows."""
+    rng = np.random.default_rng(capacity)
+    xyz = rng.uniform(-14, 14, (3000, 3)).astype(np.float32)
+    xyz[1000:1500] = xyz[:500] + 0.01               # shared voxels: real means
+    batch = rng.integers(0, 2, 3000).astype(np.int32)
+    valid = rng.random(3000) > 0.1
+    data = {"xyz": xyz, "feat": rng.normal(size=(3000, 5)).astype(np.float32)}
+    args = ((0.4, 0.4, 0.4), (-12.8, -12.8, -3.0, 12.8, 12.8, 3.2), capacity)
+    out, vb, vv = voxel_downsample({k: t(v) for k, v in data.items()}, t(xyz), t(batch),
+                                   t(valid), *args)
+    rout, rvb, rvv = j_voxel_downsample({k: jnp.asarray(v) for k, v in data.items()},
+                                        jnp.asarray(xyz), jnp.asarray(batch),
+                                        jnp.asarray(valid), *args)
+    eq(vb, rvb), eq(vv, rvv)
+    assert set(out) == set(rout)
+    for k in out:
+        close(out[k], rout[k])
+    assert 0 < int(vv.sum()) <= capacity
 
 
 # --- K2: connected components ----------------------------------------------
@@ -221,6 +250,53 @@ def test_multiclass_nms_bev_batched_matches_jax():
     eq(got.valid, ref.valid), eq(got.labels, ref.labels)
     close(got.boxes, ref.boxes), close(got.scores, ref.scores)
     assert 0 < int(got.valid.sum()) < 300     # below max_num: the NMS, not the cap, decides
+
+
+@pytest.mark.parametrize("ties", [False, True])
+def test_nms_bev_mask_matches_jax(ties):
+    rng = np.random.default_rng(8)
+    boxes = _boxes(rng, 90, extent=4.0)
+    scores = rng.random(90).astype(np.float32)
+    if ties:
+        scores = np.round(scores * 3) / 3
+    valid = rng.random(90) > 0.15
+    got = nms.nms_bev_mask(t(boxes), t(scores), t(valid), 0.1)
+    eq(got, j_nms_bev_mask(jnp.asarray(boxes), jnp.asarray(scores), jnp.asarray(valid), 0.1))
+    assert 0 < int(got.sum()) < int(valid.sum())  # some suppressed
+
+
+@pytest.mark.parametrize("max_num", [40, 500])
+def test_multiclass_nms_bev_one_sample_matches_jax(max_num):
+    """One sample, 26 classes (AV2's count); ``max_num`` 40 cuts, 500 pads."""
+    rng = np.random.default_rng(9)
+    n, c = 100, 26
+    boxes = _boxes(rng, n, extent=5.0)
+    scores = rng.random((n, c)).astype(np.float32)
+    scores[:8] = 0.75                           # cross-class and cross-box ties
+    valid = rng.random(n) > 0.1
+    got = nms.multiclass_nms_bev(t(boxes), t(scores), t(valid), 0.2, 0.6, max_num)
+    ref = j_multiclass_nms_one(jnp.asarray(boxes), jnp.asarray(scores), jnp.asarray(valid),
+                               0.2, 0.6, max_num)
+    assert got.valid.shape == (max_num,)
+    eq(got.valid, ref.valid), eq(got.labels, ref.labels)
+    close(got.boxes, ref.boxes), close(got.scores, ref.scores)
+    assert 0 < int(got.valid.sum()) <= max_num
+
+
+@pytest.mark.parametrize("code_size", [8, 10])
+def test_abs_point_coder_matches_jax(code_size):
+    rng = np.random.default_rng(code_size)
+    boxes = _boxes(rng, 50, extent=40.0)[:, :9]
+    boxes = np.concatenate([boxes, np.ones((50, 1), np.float32)], 1)
+    base = rng.normal(size=(50, 3)).astype(np.float32)
+    kw = dict(code_size=code_size, xy_normalizer=40.0, z_normalizer=4.0)
+    coder, jcoder = ABSPointBBoxCoder(**kw), JABSCoder(**kw)
+    enc = coder.encode(t(boxes), t(base))
+    close(enc, jcoder.encode(jnp.asarray(boxes), jnp.asarray(base)))
+    preds = rng.normal(size=(50, code_size)).astype(np.float32)
+    close(coder.decode(t(preds), t(base)), jcoder.decode(jnp.asarray(preds), jnp.asarray(base)))
+    dec = coder.decode(enc, t(base))
+    close(dec, boxes[:, :9 if code_size == 10 else 7], tol=1e-4)   # round trip (yaw in (-π, π])
 
 
 # --- geometry and projection -----------------------------------------------

@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Where one request's time goes in the PyTorch port, on one NVIDIA GPU.
 
-    python3 tools/profile_torch_request.py [--requests 3] [--model fsf|fsd|two_stage|htc]
+    python3 tools/profile_torch_request.py [--requests 3] [--model fsf|av2|fsd|two_stage|htc]
 
 Builds the kernels and the full-width FSF of ``chip_smoke.py`` (``--model
+av2``: its FSF at AV2's shape on the AV2 scene and seven cameras; ``--model
 fsd``: its six-task single-stage FSD; ``--model two_stage``: its two-stage
 FSD) with random weights (seed 0) on its bench-scale scene (seed 0); or
 (``--model htc``) its default HTC (random weights from seed 0, DCN offsets
@@ -19,7 +20,9 @@ and paint on the host; warms up, then:
    backbone and each of its stages C2-C5, FPN, the RPN head, the proposals
    (their NMS nested), the semantic head, each cascade stage's RoI
    features and bbox head, the class NMS, the mask RoI features and mask
-   heads, the box IoU matrices, and on the host the paste and the paint),
+   heads, the box IoU matrices, and on the host the paste and the paint;
+   AV2: FSF's spans, after an ``input`` line with the host conversion and
+   copy of the request's inputs, which the spans leave out),
    averaged over
    ``--requests`` requests. Spans are
    stream time between the two events, idle gaps included, so they add up
@@ -97,7 +100,7 @@ def wrap(owner, attr, name, spans):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--requests", type=int, default=3)
-    ap.add_argument("--model", choices=("fsf", "fsd", "two_stage", "htc"), default="fsf")
+    ap.add_argument("--model", choices=("fsf", "av2", "fsd", "two_stage", "htc"), default="fsf")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_request: no CUDA device", file=sys.stderr)
@@ -114,7 +117,7 @@ def main() -> int:
     elif args.model == "htc":
         request, spans = htc_request_spans()
     else:
-        request, spans = fsf_request_spans()
+        request, spans = fsf_request_spans(av2=args.model == "av2")
     total = 0.0
     for _ in range(args.requests):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -306,15 +309,27 @@ def htc_request_spans():
     return request, spans
 
 
-def fsf_request_spans():
-    """FSF's request and its spans."""
+def fsf_request_spans(av2: bool = False):
+    """FSF's request and its spans (``av2``: at AV2's shape, on the AV2
+    scene, with the inputs' conversion and copy as the span ``input``)."""
+    import time
+
     import chip_smoke
+    from fullysparsefusion_tpu_torch import synthetic as S
     from fullysparsefusion_tpu_torch.models import fsf as fsf_mod
     from fullysparsefusion_tpu_torch.weights import build_fsf
 
-    cfg = chip_smoke.bench_config()
+    cfg = chip_smoke.av2_config() if av2 else chip_smoke.bench_config()
     model = build_fsf(cfg, seed=0, device="cuda")
-    pb, cam = chip_smoke.bench_request(0, cfg)
+    if av2:
+        scene = chip_smoke.av2_scene(0, cfg)
+        t0 = time.perf_counter()
+        pb, cam = S.fsf_inputs(*scene, device="cuda")
+        torch.cuda.synchronize()
+        print(json.dumps({"phase": "input", "model": "av2",
+                          "host_ms": round((time.perf_counter() - t0) * 1e3, 3)}), flush=True)
+    else:
+        pb, cam = chip_smoke.bench_request(0, cfg)
 
     def request():
         return model.get_bboxes(model(pb, cam, 1), 1)
