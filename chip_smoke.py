@@ -114,6 +114,27 @@ Phases, each of which ends the script with a non-zero exit on failure:
    ``.bin``, read by ``data.av2.AV2Reader``, collated by
    ``data.pipelines.collate_scene``, served, turned into AV2 rows
    (``boxes_to_av2_rows``) and scored by ``eval.av2_detection.evaluate_av2``.
+14. nusc_entry_point: full-width nuScenes FSF at the bench capacities
+   (random weights from seed 0) from a dataset on disk: the bench scenes of
+   seeds 0, 1, 2 written as an mmdet3d nuScenes info tree
+   (``cli.make_fake_nuscenes.write_scene``: the key frame and 9 sweeps as
+   ``.bin`` files in their sensor frames, six cameras at 900 x 1,600 in the
+   ``cams`` dict, the mask PNGs), every PNG decoded by ``data/png.py`` and
+   held bitwise to its painted plane, the GT database built by
+   ``cli.create_gt_database``; ``cli.test.run --eval`` over the three
+   samples (per sample the host's read, collate, mask and input ms,
+   ``gpu_ms``, detections and launches; sample 0's masks, anno and camera
+   matrices bitwise the bench scene's, its detections bitwise the model's
+   called directly on the collated sample; the JSON and the metrics
+   finite); ``--tta`` on sample 0 (the four-variant flip grid), the
+   fusion's K3 call (C = 10 over the union) held bitwise to its plain
+   version and timed beside its bound; ``cli.train.run`` (CBGS, GT paste)
+   for 2 warm-up and 3 timed steps (host ms per step: read, paste,
+   collate, masks, input; forward / backward / optimizer ms; peak MiB;
+   launches), its checkpoint, ``--resume`` for one more step with the
+   restored parameters and optimizer state held bitwise to the saved ones,
+   and ``cli.test.run --checkpoint`` on sample 0 held bitwise to the
+   trained model's own detections.
 
 The last lines are a ``{"kernels": [...]}`` JSON object, the card's name and
 power limit from ``nvidia-smi``, and ``{"ok": true, "device": {...}}``.
@@ -270,12 +291,18 @@ def zero(wrappers) -> None:
 
 
 def build_kernels():
+    """The CUDA kernels (one ``nvcc`` per source, all at once) and the host
+    loader library (``g++``) into ``build/``."""
     from fullysparsefusion_tpu_torch import kernels
+    from fullysparsefusion_tpu_torch.data import native
 
     t0 = time.perf_counter()
     per = kernels.build_all()
+    t1 = time.perf_counter()
+    native.build()
     log({"phase": "build", "seconds": round(time.perf_counter() - t0, 3),
-         "per_source_seconds": {k: round(v, 3) for k, v in per.items()}})
+         "per_source_seconds": {k: round(v, 3) for k, v in per.items()},
+         "host_library_seconds": round(time.perf_counter() - t1, 3)})
 
 
 def small_reference_check(device="cuda"):
@@ -563,11 +590,28 @@ def ccl_cost(xy, batch, valid):
     return 5.0 * float(same.sum()), g * n * (8 + 4 + 1 + 4)
 
 
-def nms_cost(keep, order):
-    """K3's compares (one per later row, per kept row) and bytes."""
+def nms_cost(iou, order, valid_sorted, keep, thr):
+    """K3's least work on this call's data: the IoU entries (earlier row,
+    later row) that a greedy scan must read, one compare each. Per class
+    those are every pair of kept rows and, for each suppressed valid row, its
+    first suppressor; an entry that several classes need counts once. Bytes:
+    those entries, ``order`` and ``valid_sorted`` read, ``keep`` written.
+    (The whole ``4 · N²`` matrix overstates it wherever the classes' valid
+    sets are small or disjoint, as in the TTA union, where each box is valid
+    in its own label's class only.)"""
     c, n = order.shape
-    pos = torch.arange(n, device=keep.device)
-    return float(((n - 1 - pos)[None, :] * keep).sum()), 4.0 * n * n + c * n * (4 + 1 + 1)
+    need = torch.zeros(n, n, dtype=torch.bool, device=iou.device)
+    later = torch.ones(n, n, dtype=torch.bool, device=iou.device).triu(1)
+    for k in range(c):
+        o = order[k].long()
+        kept = keep[k]
+        i, j = (later & kept[:, None] & kept[None, :]).nonzero().unbind(1)
+        need[o[i], o[j]] = True
+        over = (iou[o[:, None], o[None, :]] > thr) & later & kept[:, None]
+        j = (valid_sorted[k] & ~kept).nonzero().squeeze(1)
+        need[o[over[:, j].int().argmax(0)], o[j]] = True
+    entries = float(need.sum())
+    return entries, 4.0 * entries + c * n * (4 + 1 + 1)
 
 
 def bound(flop, byte, peak_flops):
@@ -656,7 +700,7 @@ def replay_nms_keep(call, phase: str, **tags) -> dict:
     if not torch.equal(got, ref):
         fail(f"nms_keep differs from its plain version at {int((got != ref).sum())} rows")
     c, n = order.shape
-    flop, byte = nms_cost(got, order)
+    flop, byte = nms_cost(iou, order, vs, got, thr)
     bound_ms, bound_by = bound(flop, byte, PEAK_F32_FLOPS)
     run = functools.partial(nms.nms_keep, iou, order, vs, thr)
     res = dict(max_abs_err=0.0, ms=time_ms(run, 20),
@@ -2595,6 +2639,299 @@ def av2_phase(wrappers) -> dict:
                 train_per_step={k: v / AV2_TRAIN_STEPS for k, v in train_launches.items()})
 
 
+# the nuScenes entry point: the bench scenes written as an info tree, served
+# and trained through the CLIs
+NUSC_ENTRY_SEEDS = (0, 1, 2)
+# masks written at 900 x 1,600 and read at --mask-downsample 2: the bench's
+# 450 x 800 planes
+NUSC_ENTRY_SCALE = 2
+NUSC_ENTRY_WARMUP, NUSC_ENTRY_STEPS = 2, 3
+NUSC_ENTRY_KERNELS = ("gather_conv", "ccl_roots", "nms_keep")
+
+
+def nusc_entry_tree(root: str, cfg) -> dict:
+    """The bench scenes of ``NUSC_ENTRY_SEEDS`` written as an mmdet3d
+    nuScenes info tree through ``cli.make_fake_nuscenes.write_scene`` (the
+    key frame and 9 sweeps as ``.bin`` files with their transforms, six
+    cameras at 900 x 1,600 in the ``cams`` dict, the mask PNGs painted from
+    the scene's camera masks), every written PNG decoded by ``data/png.py``
+    and held bitwise to its painted plane; then the GT database over the
+    tree by ``cli.create_gt_database``."""
+    from fullysparsefusion_tpu_torch.cli import create_gt_database as G
+    from fullysparsefusion_tpu_torch.cli import make_fake_nuscenes as M
+    from fullysparsefusion_tpu_torch.data.png import read_png
+
+    t0 = time.perf_counter()
+    infos, scenes, planes, decode_ms = [], [], 0, 0.0
+    for i, seed in enumerate(NUSC_ENTRY_SEEDS):
+        sc, cam = bench_scene(seed, cfg)
+        info = M.write_scene(root, i, sc, cam, img_h=450, img_w=800, fx=400.0,
+                             scale=NUSC_ENTRY_SCALE)
+        ids = (cam["masks"][0] & 0xFF).astype(np.uint8)
+        ids = ids.repeat(NUSC_ENTRY_SCALE, axis=1).repeat(NUSC_ENTRY_SCALE, axis=2)
+        sdir = os.path.join(root, "masks", info["token"])
+        for f in sorted(os.listdir(sdir)):
+            if not f.endswith(".png"):
+                continue
+            c, k = (int(x) for x in f[:-4].split("_"))
+            t1 = time.perf_counter()
+            got = read_png(os.path.join(sdir, f))
+            decode_ms += (time.perf_counter() - t1) * 1e3
+            if not np.array_equal(got, ids[c, :, :, k]):
+                fail(f"nuScenes entry: {info['token']}/{f} does not decode to its painted plane")
+            planes += 1
+        infos.append(info)
+        scenes.append((sc, cam))
+    info_path = M.write_infos(root, infos)
+    db = os.path.join(root, "gt_db.pkl")
+    db_counts = G.run(G.parse_args(["--info-pkl", info_path, "--data-root", root, "--out", db]))
+    log({"phase": "nusc_entry_tree", "samples": len(infos),
+         "points_written": [int(sc["valid"].sum()) for sc, _ in scenes],
+         "sweeps": len(infos[0]["sweeps"]), "planes": planes,
+         "planes_held_bitwise": planes, "decode_ms_per_plane": round(decode_ms / planes, 3),
+         "gt_database": {int(k): v for k, v in db_counts.items() if v},
+         "seconds": round(time.perf_counter() - t0, 3)})
+    return dict(info=info_path, masks=os.path.join(root, "masks"), db=db, scenes=scenes)
+
+
+def nusc_entry_direct(model, tree: dict, cfg):
+    """The valid detections (boxes, scores, labels) of ``model`` called
+    directly on ``collate_scene([reader.sample(0)])`` and its masks, in eval
+    form; the sample's camera data are held bitwise to the bench scene's
+    own cameras."""
+    from fullysparsefusion_tpu_torch.cli.common import load_masks, point_batch
+    from fullysparsefusion_tpu_torch.data.nuscenes import NuScenesReader
+    from fullysparsefusion_tpu_torch.data.pipelines import collate_scene
+    from fullysparsefusion_tpu_torch.models.camera import CameraData
+
+    reader = NuScenesReader(tree["info"], os.path.dirname(tree["info"]), cfg.fsd.class_names,
+                            training=False, with_cbgs=False)
+    s = reader.sample(0, augment=False)
+    planes = load_masks([s], tree["masks"], cfg.num_classes, (900, 1600), NUSC_ENTRY_SCALE)
+    _, cam = tree["scenes"][0]
+    for name, got, want in zip(("masks", "anno", "lidar2img"), planes,
+                               (cam["masks"], cam["anno"], cam["lidar2img"])):
+        if got.dtype != want.dtype or not np.array_equal(got, want):
+            fail(f"nuScenes entry: the tree's {name} differ from the bench scene's")
+    batch = collate_scene([s], cfg.caps.points, cfg.caps.max_gt)
+    model.eval()
+    with torch.inference_mode():
+        det = model.get_bboxes(model(point_batch(batch, "cuda"),
+                                     CameraData.build(*planes, device="cuda"), 1), 1)
+    det = [t[0].cpu().numpy() for t in det]
+    v = det[3]
+    return det[0][v], det[1][v], det[2][v]
+
+
+def hold_detections(what: str, result: dict, direct) -> None:
+    """A CLI result (JSON lists) bitwise equal to a direct call's arrays."""
+    for key, want in zip(("boxes", "scores", "labels"), direct):
+        if len(result[key]) != len(want) or (
+                len(want) and not np.array_equal(np.asarray(result[key], want.dtype), want)):
+            fail(f"{what}: {key} differ from the direct call ({len(result[key])} against "
+                 f"{len(want)})")
+
+
+def state_equal(a, b) -> bool:
+    """Bitwise equality of two state dicts (nested dicts / lists of tensors
+    and numbers)."""
+    if torch.is_tensor(a):
+        return torch.is_tensor(b) and a.dtype == b.dtype and torch.equal(a, b.to(a.device))
+    if isinstance(a, dict):
+        return isinstance(b, dict) and a.keys() == b.keys() and all(
+            state_equal(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(state_equal(x, y) for x, y in zip(a, b))
+    return a == b
+
+
+def nusc_entry_serve(cfg, tree: dict, workdir: str, wrappers) -> dict:
+    """``cli.test.run --model fsf --eval`` over the three samples, the
+    counters zeroed just before and read just after; per sample its host
+    ms, ``gpu_ms``, detections and launches; seed 0's detections bitwise
+    equal to the model called directly; the JSON and the metrics finite."""
+    from fullysparsefusion_tpu_torch.cli import test as T
+
+    t0 = time.perf_counter()
+    out_json = os.path.join(workdir, "detections.json")
+    args = T.parse_args(["--model", "fsf", "--eval", "--info-pkl", tree["info"], "--data-root",
+                         os.path.dirname(tree["info"]), "--mask-dir", tree["masks"],
+                         "--mask-downsample", str(NUSC_ENTRY_SCALE), "--out", out_json])
+    torch.cuda.reset_peak_memory_stats()
+    zero(wrappers)
+    res = T.run(cfg, args)
+    launches = counts(wrappers)
+    for rec in res["samples"]:
+        if min(rec["launches"][k] for k in NUSC_ENTRY_KERNELS) <= 0:
+            fail(f"nuScenes entry request {rec['token']}: launches {rec['launches']}")
+        log({"phase": "nusc_entry_request", **{k: (round(v, 3) if isinstance(v, float) else v)
+                                               for k, v in rec.items()}})
+    with open(out_json) as f:
+        written = json.load(f)
+    if written != res["results"] or len(written) != len(NUSC_ENTRY_SEEDS):
+        fail("nuScenes entry: the written JSON differs from the returned results")
+    for r in written:
+        if not all(math.isfinite(x) for b in r["boxes"] for x in b + r["scores"]):
+            fail(f"nuScenes entry: non-finite detections for {r['token']}")
+    hold_detections("nuScenes entry request 0", written[0],
+                    nusc_entry_direct(res["model"], tree, cfg))
+    m = res["metrics"]
+    if not (math.isfinite(m["mAP"]) and math.isfinite(m["NDS"])):
+        fail(f"nuScenes entry: evaluate_detections gave mAP {m['mAP']}, NDS {m['NDS']}")
+    per_request = {k: v / len(res["samples"]) for k, v in launches.items()}
+    log({"phase": "nusc_entry_serve", "requests": len(res["samples"]), "mAP": m["mAP"],
+         "NDS": m["NDS"], "launches_per_request": per_request,
+         "peak_mem_mib": round(torch.cuda.max_memory_allocated() / 2**20, 1),
+         "seconds": round(time.perf_counter() - t0, 3)})
+    del res
+    torch.cuda.empty_cache()
+    return per_request
+
+
+def nusc_entry_tta(cfg, tree: dict, workdir: str) -> dict:
+    """``cli.test.run --tta`` on sample 0 with the default four-variant flip
+    grid; the fusion's K3 call (the last ``nms_keep`` call: C = 10 over the
+    union) held bitwise to its plain version and graph-timed beside its
+    bound."""
+    from fullysparsefusion_tpu_torch.cli import test as T
+    from fullysparsefusion_tpu_torch.ops import nms
+
+    t0 = time.perf_counter()
+    args = T.parse_args(["--model", "fsf", "--tta", "--max-samples", "1", "--info-pkl",
+                         tree["info"], "--data-root", os.path.dirname(tree["info"]),
+                         "--mask-dir", tree["masks"], "--mask-downsample", str(NUSC_ENTRY_SCALE),
+                         "--out", os.path.join(workdir, "tta.json")])
+    calls = []
+    with capture_calls(nms, "nms_keep", calls):
+        res = T.run(cfg, args)
+        launches = nms.nms_keep.launches
+    (rec,) = res["samples"]
+    call = calls[-1]
+    c, n = call[1].shape
+    if c != cfg.num_classes or n != rec["union"] or launches != len(calls):
+        fail(f"nuScenes entry TTA: the fusion's K3 call is C = {c}, N = {n} over a union of "
+             f"{rec['union']} ({launches} launches, {len(calls)} calls)")
+    stats = replay_nms_keep(call, "nusc_entry_tta_kernel", union=n)
+    del stats["flop"], stats["byte"]
+    hold_bound("nuScenes entry TTA K3", stats["ms"], stats["bound_ms"])
+    stats.update(C=c, N=n, launches=1)
+    log({"phase": "nusc_entry_tta", "variants": 4, "union": rec["union"],
+         "fused_detections": rec["detections"], "gpu_ms": round(rec["gpu_ms"], 3),
+         "k3_launches": launches, "fusion_ms": stats["ms"], "fusion_bound_ms": stats["bound_ms"],
+         "seconds": round(time.perf_counter() - t0, 3)})
+    del res, calls
+    torch.cuda.empty_cache()
+    return stats
+
+
+def nusc_entry_train(cfg, tree: dict, workdir: str, wrappers) -> dict:
+    """``cli.train.run --model fsf`` (CBGS on, GT paste from the database)
+    for 2 warm-up and 3 timed steps at batch 1, per step the host ms (read,
+    paste, collate, masks, input), the phases' ms, peak MiB and launches;
+    the step-5 checkpoint it writes; ``--resume`` for one more step, the
+    restored parameters and optimizer state held bitwise to the saved ones;
+    then ``cli.test.run --checkpoint`` on sample 0, its detections held
+    bitwise to the trained model's own."""
+    from fullysparsefusion_tpu_torch.cli import test as T
+    from fullysparsefusion_tpu_torch.cli import train as TR
+    from fullysparsefusion_tpu_torch.train import checkpoint as ckpt
+
+    t0 = time.perf_counter()
+    total = NUSC_ENTRY_WARMUP + NUSC_ENTRY_STEPS
+    work = os.path.join(workdir, "work")
+    argv = ["--model", "fsf", "--info-pkl", tree["info"], "--data-root",
+            os.path.dirname(tree["info"]), "--mask-dir", tree["masks"], "--mask-downsample",
+            str(NUSC_ENTRY_SCALE), "--gt-db", tree["db"], "--work-dir", work,
+            "--log-interval", "1000"]
+    zero(wrappers)
+    out = TR.run(cfg, TR.parse_args(argv + ["--max-steps", str(total)]))
+    launches = counts(wrappers)
+    timed_steps = out["steps"][NUSC_ENTRY_WARMUP:]
+    for rec in out["steps"]:
+        if not all(math.isfinite(v) for v in rec["losses"].values()):
+            fail(f"nuScenes entry train step {rec['step']}: non-finite losses")
+        log({"phase": "nusc_entry_train_step", "step": rec["step"], "loss": rec["loss"],
+             "paste": rec["paste"], "host_ms": {k: round(v, 3) for k, v in rec["host_ms"].items()},
+             **{k: round(rec[k], 3) for k in ("forward_ms", "backward_ms", "optimizer_ms",
+                                             "peak_mib")},
+             "launches": rec["launches"]})
+    per_step = {k: sum(r["launches"][k] for r in timed_steps) / NUSC_ENTRY_STEPS
+                for k in launches}
+    for k in ("gather_conv", "ccl_roots", "dw_per_tap"):
+        if per_step[k] <= 0:
+            fail(f"nuScenes entry train: kernel {k} was not launched")
+    if sum(r["host_ms"]["paste"] for r in out["steps"]) <= 0:
+        fail("nuScenes entry train: the GT sampler never ran")
+    saved = ckpt.checkpoint_path(work, total)
+    if ckpt.latest_checkpoint(work) != saved:
+        fail(f"nuScenes entry train: latest checkpoint {ckpt.latest_checkpoint(work)}")
+    model_state = {k: v.clone() for k, v in out["model"].state_dict().items()}
+    opt_state = copy.deepcopy(out["opt"].state_dict())
+    del out
+    torch.cuda.empty_cache()
+
+    restored = []
+    load = ckpt.load_checkpoint
+
+    def snapshot(path, model, opt):
+        step = load(path, model, opt)
+        restored.append((step, {k: v.clone() for k, v in model.state_dict().items()},
+                         copy.deepcopy(opt.state_dict())))
+        return step
+
+    ckpt.load_checkpoint = snapshot
+    try:
+        out = TR.run(cfg, TR.parse_args(argv + ["--max-steps", str(total + 1), "--resume"]))
+    finally:
+        ckpt.load_checkpoint = load
+    if len(restored) != 1 or restored[0][0] != total or out["start"] != total \
+            or len(out["steps"]) != 1:
+        fail(f"nuScenes entry resume: restored {[r[0] for r in restored]}, start {out['start']}")
+    if not state_equal(model_state, restored[0][1]):
+        fail("nuScenes entry resume: restored parameters differ from the saved ones")
+    if not state_equal(opt_state, restored[0][2]):
+        fail("nuScenes entry resume: restored optimizer state differs from the saved one")
+    del model_state, opt_state, restored
+    res = T.run(cfg, T.parse_args(["--model", "fsf", "--max-samples", "1", "--checkpoint",
+                                   ckpt.checkpoint_path(work, total + 1), "--info-pkl",
+                                   tree["info"], "--data-root", os.path.dirname(tree["info"]),
+                                   "--mask-dir", tree["masks"], "--mask-downsample",
+                                   str(NUSC_ENTRY_SCALE),
+                                   "--out", os.path.join(workdir, "ckpt.json")]))
+    hold_detections("nuScenes entry served from the checkpoint", res["results"][0],
+                    nusc_entry_direct(out["model"], tree, cfg))
+    mean = {k: sum(r[k] for r in timed_steps) / NUSC_ENTRY_STEPS
+            for k in ("forward_ms", "backward_ms", "optimizer_ms")}
+    host = {k: sum(r["host_ms"][k] for r in timed_steps) / NUSC_ENTRY_STEPS
+            for k in timed_steps[0]["host_ms"]}
+    log({"phase": "nusc_entry_train", "steps": NUSC_ENTRY_STEPS,
+         "mean_ms": {k: round(v, 3) for k, v in mean.items()},
+         "host_ms": {k: round(v, 3) for k, v in host.items()},
+         "peak_mem_mib": round(max(r["peak_mib"] for r in timed_steps), 1),
+         "launches_per_step": per_step, "resumed_step": total,
+         "served_detections": len(res["results"][0]["scores"]),
+         "seconds": round(time.perf_counter() - t0, 3)})
+    del out, res
+    torch.cuda.empty_cache()
+    return per_step
+
+
+def nusc_entry_phase(wrappers) -> dict:
+    """Full-width nuScenes FSF at the bench capacities (random weights from
+    seed 0) through the dataset entry points: the bench scenes written as an
+    info tree, served by the test CLI, with TTA, trained, resumed and served
+    from the checkpoint by the train and test CLIs."""
+    t0 = time.perf_counter()
+    cfg = bench_config()
+    with tempfile.TemporaryDirectory() as root:
+        tree = nusc_entry_tree(root, cfg)
+        per_request = nusc_entry_serve(cfg, tree, root, wrappers)
+        tta = nusc_entry_tta(cfg, tree, root)
+        per_step = nusc_entry_train(cfg, tree, root, wrappers)
+    log({"phase": "nusc_entry_point", "seconds": round(time.perf_counter() - t0, 3)})
+    return dict(per_request=per_request, train_per_step=per_step, tta=tta)
+
+
 KERNEL_INFO = {
     "gather_conv": ("fullysparsefusion_tpu_torch/csrc/gather_conv.cu",
                     "fullysparsefusion_tpu/ops/pallas_kernels.py:366"),
@@ -2671,6 +3008,7 @@ def main() -> int:
     sst_phase()
     htc = htc_phase(wrappers)
     av2 = av2_phase(wrappers)
+    nusc = nusc_entry_phase(wrappers)
     entries = []
     for name, st in stats.items():
         source, replaces = KERNEL_INFO[name]
@@ -2723,6 +3061,10 @@ def main() -> int:
             entry["av2"]["train_backward"] = {"ms": bwd["ms"], "plain_ms": bwd["plain_ms"],
                                               "bound_ms": bwd["bound_ms"],
                                               "max_abs_err": bwd["err"]}
+        entry.update(nusc_entry_launches_per_request=nusc["per_request"][name],
+                     nusc_entry_train_launches_per_step=nusc["train_per_step"][name])
+        if name == "nms_keep":
+            entry["tta"] = nusc["tta"]
         entries.append(entry)
     log({"phase": "total", "seconds": round(time.perf_counter() - t_start, 3)})
     log({"kernels": entries})

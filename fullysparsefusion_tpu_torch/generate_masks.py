@@ -10,8 +10,9 @@ nuScenes classes; then the detections are painted as the tool does (the
 top ``max_anno`` by score, higher scores painted last, pixel value = anno
 row + 1). The result is what ``data/masks.py::load_sample_masks`` reads
 from the tool's PNGs: ``[cams, H, W, classes]`` uint8 instance ids and the
-``[max_anno, 9]`` anno table, which ``synthetic.pack_mask_scores`` packs
-for FSF. No PNG is written and no info pickle read here.
+``[max_anno, 9]`` anno table, which ``data/masks.py::pack_mask_scores``
+packs for FSF. ``data/masks.py::save_sample`` writes them as the tool's
+PNGs.
 """
 from __future__ import annotations
 
@@ -21,6 +22,7 @@ from typing import List, Sequence, Tuple
 import numpy as np
 import torch
 
+from .data.masks import reorg_anno
 from .models.htc import HTC, NUIM_CLASSES, Detections
 
 # standard nuScenes detection class order
@@ -143,23 +145,6 @@ def paint_sample(dets: Sequence[dict], num_cams: int, num_classes: int,
                         int(d["category"])]
         region[m] = row_of[i] + 1
     return planes, annos
-
-
-def reorg_anno(raw_annos: Sequence[dict], max_anno: int = 250) -> np.ndarray:
-    """[A, 9] anno rows sorted by obj_id: [x1, y1, x2, y2, score, category,
-    cam_id, obj_id, valid]."""
-    out = np.zeros((max_anno, 9), np.float32)
-    for a in sorted(raw_annos, key=lambda a: a["obj_id"]):
-        i = int(a["obj_id"])
-        if i >= max_anno:
-            continue
-        out[i, :4] = a["bbox"]
-        out[i, 4] = a["score"]
-        out[i, 5] = a["category"]
-        out[i, 6] = a["cam_id"]
-        out[i, 7] = a["obj_id"]
-        out[i, 8] = 1.0
-    return out
 
 
 def sample_masks(model: HTC, images: np.ndarray, score_thr: float = 0.3, num_classes: int = 10,

@@ -2,7 +2,8 @@
 
 NumPy generators that give, for the same seed, the same arrays as the JAX
 package's test fixtures (``make_scene``, ``make_lidar_scene``,
-``make_camera_data``, ``with_noaug_channels``) and its ``pack_mask_scores``.
+``make_camera_data``, ``with_noaug_channels``); masks are packed by
+``data/masks.py::pack_mask_scores``.
 The ``*_arrays`` functions return plain NumPy dicts; ``to_point_batch`` /
 ``to_camera_data`` / ``to_ground_truth`` move them into the port's
 containers on a device.
@@ -17,6 +18,7 @@ from typing import Dict
 import numpy as np
 import torch
 
+from .data.masks import pack_mask_scores
 from .models.camera import CameraData
 from .utils.containers import GroundTruth, PointBatch
 
@@ -170,23 +172,6 @@ def make_lidar_scene_arrays(
 def with_noaug_channels_array(points: np.ndarray) -> np.ndarray:
     """Append a copy of xyz as the last-3 'no-augmentation' channels."""
     return np.concatenate([points, points[:, :3]], axis=1)
-
-
-def pack_mask_scores(masks_u8: np.ndarray, anno: np.ndarray) -> np.ndarray:
-    """value = id | round(score·255) << 8 per pixel (id = anno row + 1,
-    0 = background). ``anno`` is [A, 9] or [B, A, 9] matching ``masks``
-    [cams, ...] or [B, cams, ...]."""
-    masks_u8 = np.asarray(masks_u8)
-    anno = np.asarray(anno)
-    if anno.ndim == 2:
-        score_u8 = np.zeros(anno.shape[0] + 1, np.uint16)
-        score_u8[1:] = np.round(anno[:, 4] * 255).astype(np.uint16)
-        return masks_u8.astype(np.uint16) | (score_u8[masks_u8] << 8)
-    if anno.ndim != 3 or masks_u8.shape[0] != anno.shape[0]:
-        raise ValueError("anno must be [A, 9] or [B, A, 9] matching masks")
-    return np.stack(
-        [pack_mask_scores(masks_u8[b], anno[b]) for b in range(anno.shape[0])]
-    )
 
 
 def make_camera_arrays(

@@ -1,24 +1,19 @@
 """The port's LiDAR-only ``SingleStageFSD`` against the JAX package's on the
 CPU: forward, losses, decode and training, for the tiny config with one
-task of every class and with the six nuScenes class-group tasks, the JAX
-variable tree carried across by ``weights.from_jax_variables`` with
+task of every class (the six nuScenes class-group tasks are held in
+``test_torch_fsd_six_tasks.py``, which shares this file's helpers), the
+JAX variable tree carried across by ``weights.from_jax_variables`` with
 ``strict=True``.
 
-Each configuration compiles one JAX train step per module (a module-scoped
+The configuration compiles one JAX train step per module (a module-scoped
 fixture; XLA's backend optimisation is turned down for these compiles,
-which only moves the reference by float rounding):
-
-* ``one_task``: eval-form BN, the detection weight an argument, run at 1
-  and at 0: forward, the loss dict and ``get_bboxes``; at weight 0 the
-  cluster head's gradients (the only ones this compile takes) are exactly
-  0 on both sides. In the same compile the
-  JAX package's FSD train forward (``fsd_forward_fn``, train-form BN),
-  against which the port's ``train_step`` is held on its losses and the BN
-  statistics it leaves;
-* ``six_tasks``: eval-form BN, ``value_and_grad`` of the summed loss and
-  the JAX package's AdamW (``parallel.train.make_optimizer``, the segmentor
-  core at 0.2): forward, the loss dict with its ``task{t}_`` keys, the
-  gradient tree, the parameters after the step and ``get_bboxes``.
+which only moves the reference by float rounding), ``one_task``:
+eval-form BN, the detection weight an argument, run at 1 and at 0:
+forward, the loss dict and ``get_bboxes``; at weight 0 the cluster head's
+gradients (the only ones this compile takes) are exactly 0 on both sides.
+In the same compile the JAX package's FSD train forward
+(``fsd_forward_fn``, train-form BN), against which the port's
+``train_step`` is held on its losses and the BN statistics it leaves.
 
 A train-form step flips LiDAR-branch decisions under ulp noise (bf16 UNet
 activations renormalised by BN), so the detection terms and the gradient
@@ -35,21 +30,25 @@ Tolerances (as ``test_torch_train.py``):
 * BN statistics: ``STATS_TOL`` 1e-5;
 * gradients: ``LEAF_TOL`` 5e-2 relative L2 per leaf, ``TOTAL_TOL`` 1e-2 over
   the tree;
-* parameters after AdamW: ``OPT_TOL`` 1e-6 (``test_torch_train.py``'s,
-  there for equal gradients), except entries whose gradient is near 0,
-  which AdamW's first step moves by up to lr either way: at most
-  ``OPT_FLIP_SHARE`` 0.1 % of all entries [5.4e-4], each within 2 · lr.
+* parameters after AdamW (in ``test_torch_fsd_six_tasks.py``): ``OPT_TOL``
+  1e-6 (``test_torch_train.py``'s, there for equal gradients), except
+  entries whose gradient is near 0, which AdamW's first step moves by up to
+  lr either way: at most ``OPT_FLIP_SHARE`` 0.1 % of all entries [5.4e-4],
+  each within 2 · lr.
+
+The file holds at most five tests, as does the six-task file: xdist's
+``--dist loadfile`` hands out files with more tests first, and these two
+compiles then run beside ``tests/test_train.py``, the Tier-1 run's longest
+file, instead of delaying its start.
 """
 import dataclasses
 
 import jax
 import numpy as np
-import optax
 import pytest
 import torch
 
 from fixtures import make_scene
-from fullysparsefusion_tpu.config import NUSC_GROUPS
 from fullysparsefusion_tpu.config import tiny_fsd_config as j_tiny_fsd_config
 from fullysparsefusion_tpu.models.fsd import SingleStageFSD as JFSD
 from fullysparsefusion_tpu.parallel import train as jtrain
@@ -161,46 +160,6 @@ def _one_task_port(cfg, jvars, tpb, tgt):
     return got, det, (step_loss, step_losses, m)
 
 
-@pytest.fixture(scope="module")
-def six_tasks():
-    """The six nuScenes group tasks, eval-form BN: one step of the summed
-    loss's gradient and the JAX package's AdamW."""
-    jcfg, cfg, model, jvars, (jpb, jgt), (tpb, tgt) = _inputs(NUSC_GROUPS)
-    tx = jtrain.make_optimizer(base_lr=1e-4, total_steps=100, lr_mult_rules=LR_RULES)
-
-    def run(params, stats):
-        def loss_fn(p):
-            out = model.apply({"params": p, "batch_stats": stats}, jpb, 2, jgt, False)
-            return jtrain.total_loss(out["losses"]), out
-
-        (loss, out), grads = jax.value_and_grad(loss_fn, has_aux=True)(params)
-        updates, _ = tx.update(grads, tx.init(params), params)
-        det = _jax_bboxes(model, {"params": params, "batch_stats": stats}, out)
-        return loss, out, grads, optax.apply_updates(params, updates), det
-
-    jloss, jout, jgrads, jparams, jdet = jax.tree_util.tree_map(
-        np.asarray, jax.jit(run, compiler_options=FAST_COMPILE)(jvars["params"],
-                                                                jvars["batch_stats"]))
-    port = _six_task_port(cfg, jvars, tpb, tgt)
-    return dict(jvars=jvars, jloss=jloss, jout=jout, jgrads=jgrads, jparams=jparams, jdet=jdet,
-                **port)
-
-
-def _six_task_port(cfg, jvars, tpb, tgt):
-    """The port's side of ``six_tasks``: eval-form forward + backward,
-    ``get_bboxes``, one AdamW step."""
-    m = build_fsd(cfg, device="cpu", jax_variables=jvars)
-    opt = T.make_optimizer(m, base_lr=1e-4, total_steps=100, lr_mult_rules=LR_RULES)
-    out = m(tpb, 2, tgt, train=False)
-    loss = T.total_loss(out["losses"])
-    loss.backward()
-    grads = {n: p.grad.detach().clone() for n, p in m.named_parameters()}
-    with torch.no_grad():
-        det = m.get_bboxes(out, 2)
-    T.optimizer_step(opt, 0)
-    return dict(model=m, out=out, loss=loss, grads=grads, det=det)
-
-
 def _forward_outputs(o, tasks):
     """The compared forward outputs, named."""
     res = {f"seg_out.{k}": o["seg_out"][k]
@@ -290,62 +249,3 @@ def test_detection_weight_zero_leaves_the_head_without_gradient_in_both(one_task
         assert p.grad is None or not p.grad.any(), n
     seg = m.segmentor.VoteSegHead_0.Dense_0.weight.grad
     assert float(seg.abs().sum()) > 0
-
-
-def test_six_task_forward_matches_jax(six_tasks):
-    _check_forward(six_tasks["jout"], six_tasks["out"], 6)
-    assert "cls_logits" not in six_tasks["out"]
-    for t, names in enumerate(NUSC_GROUPS):
-        assert six_tasks["out"]["cls_logits_tasks"][t].shape[1] == len(names)
-
-
-def test_six_task_losses_match_jax(six_tasks):
-    got = six_tasks["out"]["losses"]
-    _check_losses(six_tasks["jout"]["losses"], got)
-    assert {k.split("_")[0] for k in got if k.startswith("task")} == {f"task{t}" for t in range(6)}
-    assert sum(float(got[f"task{t}_num_pos"]) > 0 for t in range(6)) >= 2
-    _check("total", six_tasks["jloss"], six_tasks["loss"], BF16_CHAIN_TOL)
-
-
-def test_six_task_gradient_tree_matches_jax(six_tasks):
-    ref = from_jax_variables({"params": six_tasks["jgrads"]})
-    grads = six_tasks["grads"]
-    assert set(ref) == set(grads)
-    num = den = 0.0
-    for k, g in ref.items():
-        got = grads[k]
-        d, n = float((got - g).norm()), float(g.norm())
-        assert d <= LEAF_TOL * n + 1e-6, (k, d / max(n, 1e-12))
-        num, den = num + d * d, den + n * n
-    assert (num / den) ** 0.5 <= TOTAL_TOL
-    for t in range(6):
-        assert float(grads[f"query_branch.bbox_head.SeparateHead_{t}.MLP_4.Dense_2.weight"]
-                     .abs().sum()) > 0, t
-
-
-def test_six_task_parameters_after_adamw_match_jax(six_tasks):
-    """The parameters after one step of the JAX package's AdamW and of the
-    port's. The first AdamW step is ~lr · g / (|g| + eps) per entry, so an
-    entry whose gradient is near 0 can step by up to lr either way while the
-    gradients agree: every entry within ``OPT_TOL`` + 2 · lr · mult, and at
-    most ``OPT_FLIP_SHARE`` of all entries beyond ``OPT_TOL``."""
-    ref = from_jax_variables({"params": six_tasks["jparams"]})
-    start = from_jax_variables({"params": six_tasks["jvars"]["params"]})
-    params = dict(six_tasks["model"].named_parameters())
-    assert set(ref) == set(params)
-    moved, off, total = {}, 0, 0
-    for k, v in ref.items():
-        lr = 1e-4 * (LR_RULES[CORE] if k.startswith(CORE) else 1.0)
-        diff = (params[k].detach() - v).abs()
-        assert float(diff.max()) <= OPT_TOL + 2 * lr, k
-        off, total = off + int((diff > OPT_TOL).sum()), total + diff.numel()
-        moved[k] = float((v - start[k]).abs().max())
-    assert off <= OPT_FLIP_SHARE * total
-    assert max(v for k, v in moved.items() if k.startswith(CORE)) < \
-        max(v for k, v in moved.items() if k.startswith("query_branch."))
-
-
-def test_six_task_get_bboxes_matches_jax(six_tasks):
-    det = six_tasks["det"]
-    _check_bboxes(six_tasks["jdet"], det)
-    assert det.valid.shape == (2, 6 * six_tasks["model"].cfg.head.max_num)

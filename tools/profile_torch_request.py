@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Where one request's time goes in the PyTorch port, on one NVIDIA GPU.
 
-    python3 tools/profile_torch_request.py [--requests 3] [--model fsf|av2|fsd|two_stage|htc]
+    python3 tools/profile_torch_request.py [--requests 3] \
+        [--model fsf|av2|fsd|two_stage|htc|nusc_entry]
 
 Builds the kernels and the full-width FSF of ``chip_smoke.py`` (``--model
 av2``: its FSF at AV2's shape on the AV2 scene and seven cameras; ``--model
@@ -9,7 +10,10 @@ fsd``: its six-task single-stage FSD; ``--model two_stage``: its two-stage
 FSD) with random weights (seed 0) on its bench-scale scene (seed 0); or
 (``--model htc``) its default HTC (random weights from seed 0, DCN offsets
 non-zero) on one sample's six 900 x 1,600 cameras (seed 0), with the paste
-and paint on the host; warms up, then:
+and paint on the host; or (``--model nusc_entry``) the full-width FSF served
+from a nuScenes info tree on disk (``chip_smoke.nusc_entry_tree``: the bench
+scene of seed 0 as a key frame, 9 sweeps and 900 x 1,600 mask PNGs), as
+``cli.test`` serves a sample; warms up, then:
 
 1. spans: CUDA events around every top-level submodule and around the
    functions the forward calls outside them (FSF: mask lookup, RoI pooling,
@@ -22,7 +26,11 @@ and paint on the host; warms up, then:
    features and bbox head, the class NMS, the mask RoI features and mask
    heads, the box IoU matrices, and on the host the paste and the paint;
    AV2: FSF's spans, after an ``input`` line with the host conversion and
-   copy of the request's inputs, which the spans leave out),
+   copy of the request's inputs, which the spans leave out; nusc_entry:
+   FSF's spans beside the host's ``read`` (the reader: ``.bin`` files,
+   sweep chain, transforms), ``collate``, ``masks`` (PNG decode and pack)
+   and ``input`` (conversion and copy to the card), during which the card
+   idles),
    averaged over
    ``--requests`` requests. Spans are
    stream time between the two events, idle gaps included, so they add up
@@ -100,7 +108,8 @@ def wrap(owner, attr, name, spans):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--requests", type=int, default=3)
-    ap.add_argument("--model", choices=("fsf", "av2", "fsd", "two_stage", "htc"), default="fsf")
+    ap.add_argument("--model", choices=("fsf", "av2", "fsd", "two_stage", "htc", "nusc_entry"),
+                    default="fsf")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_request: no CUDA device", file=sys.stderr)
@@ -116,6 +125,8 @@ def main() -> int:
         request, spans = two_stage_request_spans()
     elif args.model == "htc":
         request, spans = htc_request_spans()
+    elif args.model == "nusc_entry":
+        request, spans = nusc_entry_request_spans()
     else:
         request, spans = fsf_request_spans(av2=args.model == "av2")
     total = 0.0
@@ -316,7 +327,6 @@ def fsf_request_spans(av2: bool = False):
 
     import chip_smoke
     from fullysparsefusion_tpu_torch import synthetic as S
-    from fullysparsefusion_tpu_torch.models import fsf as fsf_mod
     from fullysparsefusion_tpu_torch.weights import build_fsf
 
     cfg = chip_smoke.av2_config() if av2 else chip_smoke.bench_config()
@@ -336,6 +346,15 @@ def fsf_request_spans(av2: bool = False):
 
     warm(request)
     spans = Spans()
+    hook_fsf(model, cfg, spans)
+    return request, spans
+
+
+def hook_fsf(model, cfg, spans):
+    """FSF's spans: its top-level submodules, the refinement's parts, and
+    the functions the forward calls outside them."""
+    from fullysparsefusion_tpu_torch.models import fsf as fsf_mod
+
     for name in SPANS_TOP:
         hook_module(getattr(model, name), name, spans)
         for sub in SPANS_NESTED.get(name, ()):
@@ -349,6 +368,52 @@ def fsf_request_spans(av2: bool = False):
     wrap(model.fsd_branch, "extract_foreground", "fsd_branch.extract_foreground", spans)
     wrap(model, "get_bboxes", "get_bboxes", spans)
     wrap(model, "forward", "forward", spans)
+
+
+def nusc_entry_request_spans():
+    """FSF served from a nuScenes info tree on disk, as ``cli.test`` serves
+    a sample: the host's read, collate, masks and input, then FSF's spans."""
+    import tempfile
+
+    import chip_smoke
+    from fullysparsefusion_tpu_torch.cli import common
+    from fullysparsefusion_tpu_torch.data.nuscenes import NuScenesReader
+    from fullysparsefusion_tpu_torch.data.pipelines import collate_scene
+    from fullysparsefusion_tpu_torch.models.camera import CameraData
+    from fullysparsefusion_tpu_torch.weights import build_fsf
+
+    cfg = common.model_config(chip_smoke.bench_config(), "fsf", common.READER_POINT_WIDTH)
+    root = tempfile.TemporaryDirectory()
+    tree = chip_smoke.nusc_entry_tree(root.name, cfg)
+    tree["dir"] = root  # removed with the last reference to the request
+    reader = NuScenesReader(tree["info"], root.name, cfg.fsd.class_names, training=False,
+                            with_cbgs=False)
+    model = build_fsf(cfg, seed=0, device="cuda")
+    spans = Spans()
+
+    def request():
+        spans.start("read")
+        s = reader.sample(0, augment=False)
+        spans.stop("read")
+        spans.start("collate")
+        batch = collate_scene([s], cfg.caps.points, cfg.caps.max_gt)
+        spans.stop("collate")
+        spans.start("masks")
+        planes = common.load_masks([s], tree["masks"], cfg.num_classes, (900, 1600),
+                                   chip_smoke.NUSC_ENTRY_SCALE)
+        spans.stop("masks")
+        spans.start("input")
+        pb = common.point_batch(batch, "cuda")
+        cam = CameraData.build(*planes, device="cuda")
+        spans.stop("input")
+        with torch.inference_mode():
+            out = model.get_bboxes(model(pb, cam, 1), 1)
+        return out
+
+    warm(request)
+    spans.collect()
+    spans.ms.clear()
+    hook_fsf(model, cfg, spans)
     return request, spans
 
 
