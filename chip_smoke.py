@@ -135,6 +135,26 @@ Phases, each of which ends the script with a non-zero exit on failure:
    restored parameters and optimizer state held bitwise to the saved ones,
    and ``cli.test.run --checkpoint`` on sample 0 held bitwise to the
    trained model's own detections.
+15. reference_interop: reference config files and mmdet3d-layout
+   checkpoints. ``config_compat.load_fsf_config`` on the reconstructed
+   nuScenes config file (``tests/torch_reference_configs``) held field by
+   field to ``nusc_fsf_config()``; the seeded full-width FSF's
+   reference-layout state dict (``train.torch_map.synthesize_state_dict``
+   of ``weights.to_jax_variables``) written as an mmcv ``.pth``, converted
+   by ``cli.convert_checkpoint`` against the config file (every tensor
+   filled, none missing, unmapped or mismatched), loaded into a fresh FSF
+   by ``load_jax_variables``: the bench requests of seeds 0, 1, 2 bitwise
+   the seeded model's detections with the main path's K1 / K2 / K3
+   launches per request, and ``--export`` gives the state dict back
+   bitwise; one request under ``utils.profiling.device_trace``, whose
+   trace must name K1's, K2's and K3's kernels, with ``SectionTimer``'s ms;
+   the FSD-pretrain warm start: a seeded full-width FSD's ``.pth``
+   converted into FSF (the shared leaves bitwise the FSD's), then
+   ``cli.train.run --config --init-from`` for 2 steps on the nuScenes tree
+   (the loaded state bitwise the conversion's, finite losses, the nuScenes
+   entry point's launches per step); the seeded full HTC's ``.pth``
+   converted and built strictly: one six-camera 900 x 1,600 sample's masks
+   and anno table bitwise the seeded model's, K3 launched twice a camera.
 
 The last lines are a ``{"kernels": [...]}`` JSON object, the card's name and
 power limit from ``nvidia-smi``, and ``{"ok": true, "device": {...}}``.
@@ -2916,20 +2936,360 @@ def nusc_entry_train(cfg, tree: dict, workdir: str, wrappers) -> dict:
     return per_step
 
 
-def nusc_entry_phase(wrappers) -> dict:
+def nusc_entry_phase(wrappers, root: str) -> dict:
     """Full-width nuScenes FSF at the bench capacities (random weights from
     seed 0) through the dataset entry points: the bench scenes written as an
-    info tree, served by the test CLI, with TTA, trained, resumed and served
-    from the checkpoint by the train and test CLIs."""
+    info tree under ``root``, served by the test CLI, with TTA, trained,
+    resumed and served from the checkpoint by the train and test CLIs.
+    Returns the launches and the tree."""
     t0 = time.perf_counter()
     cfg = bench_config()
-    with tempfile.TemporaryDirectory() as root:
-        tree = nusc_entry_tree(root, cfg)
-        per_request = nusc_entry_serve(cfg, tree, root, wrappers)
-        tta = nusc_entry_tta(cfg, tree, root)
-        per_step = nusc_entry_train(cfg, tree, root, wrappers)
+    tree = nusc_entry_tree(root, cfg)
+    per_request = nusc_entry_serve(cfg, tree, root, wrappers)
+    tta = nusc_entry_tta(cfg, tree, root)
+    per_step = nusc_entry_train(cfg, tree, root, wrappers)
     log({"phase": "nusc_entry_point", "seconds": round(time.perf_counter() - t0, 3)})
-    return dict(per_request=per_request, train_per_step=per_step, tta=tta)
+    return dict(per_request=per_request, train_per_step=per_step, tta=tta, tree=tree)
+
+# -- reference configs and checkpoints ------------------------------------------------------
+
+# the reconstructed reference config (tests/torch_reference_configs: the
+# reference's own file is not in the repository)
+REF_CONFIG = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                          "torch_reference_configs", "nuScenes", "FSF_nuScenes_config.py")
+INTEROP_SEEDS = (0, 1, 2)
+INTEROP_TRAIN_STEPS = 2
+INTEROP_KERNELS = ("gather_conv", "ccl_roots", "nms_keep")
+# the kernels' names in a profiler trace: K1, K2 (two kernels), K3 (two kernels)
+TRACE_KERNELS = {"gather_conv": ("gather_conv_kernel",),
+                 "ccl_roots": ("ccl_adjacency_bits", "ccl_union_find"),
+                 "nms_keep": ("nms_mask_kernel", "nms_scan_kernel")}
+
+
+def mib(path: str) -> float:
+    return round(os.path.getsize(path) / 2**20, 1)
+
+
+def save_reference_pth(path: str, sd: dict) -> None:
+    """A state dict of NumPy arrays in mmcv's checkpoint layout."""
+    torch.save({"meta": {"epoch": 6, "iter": 0, "config": os.path.basename(REF_CONFIG)},
+                "state_dict": {k: torch.from_numpy(v) for k, v in sd.items()}}, path)
+
+
+def convert(what: str, argv: list) -> dict:
+    """``cli.convert_checkpoint.main(argv)``; its report's counts logged."""
+    from fullysparsefusion_tpu_torch.cli import convert_checkpoint as C
+
+    t0 = time.perf_counter()
+    out = C.main(argv)
+    rec = {"phase": "interop_convert", "what": what, "seconds": round(time.perf_counter() - t0, 3)}
+    if "report" in out:
+        r = out["report"]
+        rec.update(filled=r["filled"], total=r["total"], missing=len(r["missing"]),
+                   unmapped=len(r["unmapped"]), mismatch=len(r["mismatch"]))
+    else:
+        rec.update(out)
+    log(rec)
+    return out
+
+
+def hold_full_report(what: str, report: dict) -> None:
+    if report["filled"] != report["total"] or report["missing"] or report["unmapped"] \
+            or report["mismatch"]:
+        fail(f"{what}: filled {report['filled']} of {report['total']}, missing "
+             f"{report['missing'][:3]}, unmapped {report['unmapped'][:3]}, mismatch "
+             f"{report['mismatch'][:3]}")
+
+
+def config_differences(a, b, path="") -> list:
+    """The fields (dotted paths) where two ``dataclasses.asdict`` trees differ."""
+    if isinstance(a, dict) and isinstance(b, dict) and a.keys() == b.keys():
+        return [d for k in a for d in config_differences(a[k], b[k], f"{path}.{k}")]
+    return [] if (a == b and type(a) is type(b)) else [f"{path.lstrip('.')}: {a!r} != {b!r}"]
+
+
+def interop_config():
+    """``load_fsf_config`` on the reconstructed nuScenes file, field by field
+    against ``nusc_fsf_config()``; the file's config at the bench
+    capacities is then ``bench_config()``, which it returns."""
+    from fullysparsefusion_tpu_torch.config import Capacities, nusc_fsf_config
+    from fullysparsefusion_tpu_torch.config_compat import load_fsf_config
+
+    t0 = time.perf_counter()
+    cfg = load_fsf_config(REF_CONFIG)
+    diffs = config_differences(dataclasses.asdict(cfg), dataclasses.asdict(nusc_fsf_config()))
+    if diffs:
+        log({"phase": "interop_config", "differing_fields": diffs})
+        fail(f"{REF_CONFIG} differs from nusc_fsf_config() in {len(diffs)} fields")
+    bench = load_fsf_config(REF_CONFIG, Capacities(**BENCH_CAPS))
+    bench = dataclasses.replace(bench, fsd=dataclasses.replace(
+        bench.fsd, segmentor=dataclasses.replace(bench.fsd.segmentor,
+                                                 unet_stage_capacities=BENCH_STAGE_CAPS)))
+    if bench != bench_config():
+        fail("the config file at the bench capacities is not bench_config()")
+    log({"phase": "interop_config", "file": os.path.relpath(REF_CONFIG),
+         "fields_held": len(list(_leaf_fields(dataclasses.asdict(cfg)))),
+         "seconds": round(time.perf_counter() - t0, 3)})
+    return bench
+
+
+def _leaf_fields(tree, path=""):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _leaf_fields(v, f"{path}.{k}")
+    else:
+        yield path
+
+
+def interop_fsf(cfg, workdir: str, wrappers, main_per_request: dict):
+    """The seeded full-width FSF's reference-layout state dict as an mmcv
+    ``.pth``, converted by the CLI against the config file, loaded into a
+    fresh FSF by ``load_jax_variables``: the bench requests of
+    ``INTEROP_SEEDS`` bitwise the seeded model's detections, with the
+    main path's launches per request; ``--export`` gives the state dict
+    back bitwise. Returns the converted model and its launches per
+    request."""
+    from fullysparsefusion_tpu_torch.train import checkpoint as ckpt
+    from fullysparsefusion_tpu_torch.train.torch_map import synthesize_state_dict
+    from fullysparsefusion_tpu_torch.weights import build_fsf, to_jax_variables
+
+    t0 = time.perf_counter()
+    seeded = build_fsf(cfg, seed=0, device="cuda")
+    sd = synthesize_state_dict(to_jax_variables(seeded), "fsf")
+    pth, pkl, back = (os.path.join(workdir, n) for n in ("fsf.pth", "fsf_vars.pkl",
+                                                          "fsf_export.pth"))
+    save_reference_pth(pth, sd)
+    log({"phase": "interop_fsf_checkpoint", "tensors": len(sd), "pth_mib": mib(pth),
+         "seconds": round(time.perf_counter() - t0, 3)})
+    report = convert("fsf", ["--pth", pth, "--model", "fsf", "--config", REF_CONFIG,
+                             "--out", pkl])["report"]
+    hold_full_report("FSF conversion", report)
+    t1 = time.perf_counter()
+    model = build_fsf(cfg, seed=1, device="cuda")
+    ckpt.load_jax_variables(pkl, model)
+    log({"phase": "interop_fsf_load", "pickle_mib": mib(pkl),
+         "seconds": round(time.perf_counter() - t1, 3)})
+    launches = []
+    for seed in INTEROP_SEEDS:
+        pb, cam = bench_request(seed, cfg)
+        with torch.inference_mode():
+            want = seeded.get_bboxes(seeded(pb, cam, 1), 1)
+            torch.cuda.synchronize()
+            zero(wrappers)
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            got = model.get_bboxes(model(pb, cam, 1), 1)
+            end.record()
+        torch.cuda.synchronize()
+        launches.append(counts(wrappers))
+        for name, a, b in zip(got._fields, got, want):
+            if not torch.equal(a, b):
+                fail(f"FSF from the converted checkpoint, request seed {seed}: {name} differ")
+        want_launches = {k: main_per_request[k] for k in INTEROP_KERNELS}
+        if {k: launches[-1][k] for k in INTEROP_KERNELS} != want_launches:
+            fail(f"FSF from the converted checkpoint, request seed {seed}: launches "
+                 f"{launches[-1]}, the main path's {want_launches}")
+        log({"phase": "interop_request", "seed": seed, "detections": int(got.valid.sum()),
+             "gpu_ms": round(start.elapsed_time(end), 3), "launches": launches[-1],
+             "bitwise_seeded": True})
+    del seeded
+    exported = convert("fsf export", ["--export", pkl, "--model", "fsf", "--out", back])
+    again = torch.load(back, weights_only=True)["state_dict"]
+    if list(again) != list(sd) or exported["exported"] != len(sd) or not all(
+            np.array_equal(again[k].numpy(), v) for k, v in sd.items()):
+        fail("--export did not give the written state dict back bitwise")
+    log({"phase": "interop_fsf_export", "pth_mib": mib(back), "bitwise": True})
+    per_request = {k: sum(n[k] for n in launches) / len(launches) for k in launches[0]}
+    log({"phase": "interop_fsf", "requests": len(INTEROP_SEEDS),
+         "launches_per_request": per_request, "seconds": round(time.perf_counter() - t0, 3)})
+    return model, per_request
+
+
+def interop_warm_start(cfg, tree: dict, workdir: str, wrappers, nusc_per_step: dict) -> None:
+    """FSF's recipe: a seeded full-width FSD (at the reader's point width)
+    written as an FSD-layout ``.pth``, converted against the FSF of the
+    config file (the leaves FSF shares with FSD held bitwise), then
+    ``cli.train.run`` with ``--config --init-from`` for
+    ``INTEROP_TRAIN_STEPS`` steps on the nuScenes tree, given ``cfg`` (the
+    file's config at the bench capacities, as the nuScenes entry point
+    trains): the loaded state bitwise the conversion's, finite losses, the
+    nuScenes entry point's launches per step."""
+    import pickle
+
+    from fullysparsefusion_tpu_torch.cli import common
+    from fullysparsefusion_tpu_torch.cli import train as TR
+    from fullysparsefusion_tpu_torch.train import checkpoint as ckpt
+    from fullysparsefusion_tpu_torch.train.torch_map import synthesize_state_dict
+    from fullysparsefusion_tpu_torch.weights import build_fsd, from_jax_variables, \
+        to_jax_variables
+
+    t0 = time.perf_counter()
+    fsf_cfg = common.model_config(cfg, "fsf", common.READER_POINT_WIDTH)
+    fsd_sd = synthesize_state_dict(to_jax_variables(build_fsd(fsf_cfg.fsd, seed=0,
+                                                              device="cuda")), "fsd")
+    pth, pkl = os.path.join(workdir, "fsd.pth"), os.path.join(workdir, "warm_vars.pkl")
+    save_reference_pth(pth, fsd_sd)
+    log({"phase": "interop_fsd_checkpoint", "tensors": len(fsd_sd), "pth_mib": mib(pth),
+         "seconds": round(time.perf_counter() - t0, 3)})
+    report = convert("fsd into fsf", ["--pth", pth, "--model", "fsf", "--config", REF_CONFIG,
+                                      "--point-dim", str(fsf_cfg.fsd.segmentor.point_dim),
+                                      "--out", pkl])["report"]
+    if report["unmapped"] or report["mismatch"] or report["filled"] != len(fsd_sd):
+        fail(f"FSD into FSF: {report['filled']} of {len(fsd_sd)} filled, unmapped "
+             f"{report['unmapped'][:3]}, mismatch {report['mismatch'][:3]}")
+    with open(pkl, "rb") as f:
+        warm = pickle.load(f)
+    as_fsf = synthesize_state_dict(warm, "fsf")
+    shared = [k for k in fsd_sd if k in as_fsf]
+    if len(shared) != len(fsd_sd) or not all(np.array_equal(as_fsf[k], fsd_sd[k])
+                                             for k in shared):
+        fail("FSD into FSF: a leaf FSF shares with FSD differs from the FSD's")
+    log({"phase": "interop_warm_convert", "shared_leaves_bitwise": len(shared),
+         "fsf_only_missing": len(report["missing"]), "unmapped": len(report["unmapped"]),
+         "pickle_mib": mib(pkl)})
+
+    loaded = []
+    load = ckpt.load_jax_variables
+
+    def snapshot(path, model):
+        load(path, model)
+        loaded.append({k: v.detach().cpu().clone() for k, v in model.state_dict().items()})
+
+    args = TR.parse_args(["--config", REF_CONFIG, "--init-from", pkl, "--model", "fsf",
+                          "--info-pkl", tree["info"], "--data-root", os.path.dirname(tree["info"]),
+                          "--mask-dir", tree["masks"], "--mask-downsample", str(NUSC_ENTRY_SCALE),
+                          "--work-dir", os.path.join(workdir, "work"),
+                          "--max-steps", str(INTEROP_TRAIN_STEPS), "--log-interval", "1000"])
+    ckpt.load_jax_variables = snapshot
+    try:
+        zero(wrappers)
+        out = TR.run(cfg, args)
+        launches = counts(wrappers)
+    finally:
+        ckpt.load_jax_variables = load
+    want = from_jax_variables(warm)
+    if len(loaded) != 1 or loaded[0].keys() != want.keys() or not all(
+            torch.equal(loaded[0][k], v) for k, v in want.items()):
+        fail("the train CLI's --init-from did not load the converted state bitwise")
+    for rec in out["steps"]:
+        if not all(math.isfinite(v) for v in rec["losses"].values()):
+            fail(f"warm-started train step {rec['step']}: non-finite losses")
+        log({"phase": "interop_train_step", "step": rec["step"], "loss": rec["loss"],
+             **{k: round(rec[k], 3) for k in ("forward_ms", "backward_ms", "optimizer_ms",
+                                             "peak_mib")},
+             "host_ms": {k: round(v, 3) for k, v in rec["host_ms"].items()},
+             "launches": rec["launches"]})
+    per_step = {k: v / INTEROP_TRAIN_STEPS for k, v in launches.items()}
+    for k in ("gather_conv", "dw_per_tap", "ccl_roots"):
+        if per_step[k] != nusc_per_step[k]:
+            fail(f"warm-started training launched {k} {per_step[k]} times a step, the "
+                 f"nuScenes entry point {nusc_per_step[k]}")
+    log({"phase": "interop_warm_start", "steps": INTEROP_TRAIN_STEPS,
+         "launches_per_step": per_step, "seconds": round(time.perf_counter() - t0, 3)})
+    del out
+    torch.cuda.empty_cache()
+
+
+def interop_htc(workdir: str, wrappers) -> None:
+    """The seeded full HTC (DCN offsets drawn non-zero) as an HTC-layout
+    ``.pth``, converted by the CLI, built strictly from the tree: one
+    six-camera 900 x 1,600 sample's masks and anno table bitwise the seeded
+    model's, K3 launched ``HTC_NMS_PER_CAMERA`` times a camera."""
+    import pickle
+
+    from fullysparsefusion_tpu_torch import generate_masks as gm
+    from fullysparsefusion_tpu_torch.train.torch_map import synthesize_state_dict
+    from fullysparsefusion_tpu_torch.weights import build_htc, to_jax_variables
+
+    t0 = time.perf_counter()
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True,
+                                    allow_tf32=False):
+        seeded = htc_model(0)
+        sd = synthesize_state_dict(to_jax_variables(seeded), "htc")
+        seeded = seeded.cuda()
+        pth, pkl = os.path.join(workdir, "htc.pth"), os.path.join(workdir, "htc_vars.pkl")
+        save_reference_pth(pth, sd)
+        log({"phase": "interop_htc_checkpoint", "tensors": len(sd), "pth_mib": mib(pth),
+             "seconds": round(time.perf_counter() - t0, 3)})
+        del sd
+        hold_full_report("HTC conversion", convert("htc", ["--pth", pth, "--model", "htc",
+                                                           "--out", pkl])["report"])
+        with open(pkl, "rb") as f:
+            model = build_htc(device="cuda", jax_variables=pickle.load(f))
+        images = htc_images(0, HTC_CAMS, HTC_IMG_HW)
+        want = gm.sample_masks(seeded, images, HTC_SCORE_THR, seeded.num_classes)
+        torch.cuda.synchronize()
+        zero(wrappers)
+        t1 = time.perf_counter()
+        got = gm.sample_masks(model, images, HTC_SCORE_THR, model.num_classes)
+        sample_ms = (time.perf_counter() - t1) * 1e3
+        launches = counts(wrappers)
+    for name, a, b in zip(("planes", "anno"), got, want):
+        if a.dtype != b.dtype or not np.array_equal(a, b):
+            fail(f"HTC from the converted checkpoint: the sample's {name} differ")
+    expect = {k: 0 for k in wrappers}
+    expect["nms_keep"] = HTC_NMS_PER_CAMERA * HTC_CAMS
+    if launches != expect:
+        fail(f"HTC from the converted checkpoint: launches {launches}, expected {expect}")
+    log({"phase": "interop_htc", "pickle_mib": mib(pkl), "sample_ms": round(sample_ms, 3),
+         "painted_instances": int(got[1][:, 8].sum()), "launches": launches,
+         "bitwise_seeded": True, "seconds": round(time.perf_counter() - t0, 3)})
+    del seeded, model
+    torch.cuda.empty_cache()
+
+
+def interop_profile(model, cfg, workdir: str) -> None:
+    """One FSF request under ``utils.profiling.device_trace``: the trace must
+    name K1's, K2's and K3's CUDA kernels; ``SectionTimer``'s ms per
+    section."""
+    from fullysparsefusion_tpu_torch.utils.profiling import SectionTimer, device_trace, \
+        named_scope
+
+    t0 = time.perf_counter()
+    pb, cam = bench_request(0, cfg)
+    timer = SectionTimer(print_interval=1 << 30)
+    trace_dir = os.path.join(workdir, "trace")
+    with device_trace(trace_dir), named_scope("fsf_request"), torch.inference_mode():
+        with timer.section("forward") as sync:
+            res = model(pb, cam, 1)
+            sync(res)
+        with timer.section("get_bboxes") as sync:
+            sync(model.get_bboxes(res, 1))
+    with open(os.path.join(trace_dir, "trace.json")) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+    found = {k: {n: sum(n in name for name in kernels) for n in names}
+             for k, names in TRACE_KERNELS.items()}
+    missing = [n for k in found for n, c in found[k].items() if c == 0]
+    if missing:
+        fail(f"the profiler trace names none of {missing} ({len(kernels)} kernel events)")
+    if not any(e.get("name") == "fsf_request" for e in events):
+        fail("the profiler trace lacks the named scope")
+    log({"phase": "interop_profile", "kernel_events": len(kernels), "trace_kernels": found,
+         "section_ms": {k: round(v, 3) for k, v in timer.summary().items()},
+         "trace_mib": mib(os.path.join(trace_dir, "trace.json")),
+         "seconds": round(time.perf_counter() - t0, 3)})
+
+
+def reference_interop_phase(wrappers, tree: dict, root: str, main_per_request: dict,
+                            nusc_per_step: dict) -> dict:
+    """Reference configs and checkpoints on the card: the config file, FSF
+    served from a converted reference-layout checkpoint, the FSD-pretrain
+    warm start trained through the train CLI, HTC from a converted
+    checkpoint, and one FSF request traced by the profiler. Returns the
+    converted FSF's launches per request."""
+    t0 = time.perf_counter()
+    workdir = os.path.join(root, "interop")
+    os.makedirs(workdir)
+    cfg = interop_config()
+    model, per_request = interop_fsf(cfg, workdir, wrappers, main_per_request)
+    interop_profile(model, cfg, workdir)
+    del model
+    torch.cuda.empty_cache()
+    interop_warm_start(cfg, tree, workdir, wrappers, nusc_per_step)
+    interop_htc(workdir, wrappers)
+    log({"phase": "reference_interop", "seconds": round(time.perf_counter() - t0, 3)})
+    return per_request
 
 
 KERNEL_INFO = {
@@ -2978,6 +3338,7 @@ def main() -> int:
     dets = serve(model, requests)
     launches = counts(wrappers)
     log({"phase": "main_path_launches", "requests": len(requests), **launches})
+    main_per_request = {k: v / len(requests) for k, v in launches.items()}
     for name, n in launches.items():
         if n <= 0 and name != "dw_per_tap":
             fail(f"kernel {name} was not launched on the main path")
@@ -3008,7 +3369,11 @@ def main() -> int:
     sst_phase()
     htc = htc_phase(wrappers)
     av2 = av2_phase(wrappers)
-    nusc = nusc_entry_phase(wrappers)
+    with tempfile.TemporaryDirectory() as root:
+        nusc = nusc_entry_phase(wrappers, root)
+        interop = reference_interop_phase(
+            wrappers, nusc["tree"], root,
+            main_per_request=main_per_request, nusc_per_step=nusc["train_per_step"])
     entries = []
     for name, st in stats.items():
         source, replaces = KERNEL_INFO[name]
@@ -3062,7 +3427,8 @@ def main() -> int:
                                               "bound_ms": bwd["bound_ms"],
                                               "max_abs_err": bwd["err"]}
         entry.update(nusc_entry_launches_per_request=nusc["per_request"][name],
-                     nusc_entry_train_launches_per_step=nusc["train_per_step"][name])
+                     nusc_entry_train_launches_per_step=nusc["train_per_step"][name],
+                     interop_launches_per_request=interop[name])
         if name == "nms_keep":
             entry["tta"] = nusc["tta"]
         entries.append(entry)

@@ -1,6 +1,7 @@
-"""What the train and test entry points share: the device, the model by name
-at the data's point width, the batches on the device, the offline masks,
-device timing and the kernels' launch counters."""
+"""What the train and test entry points share: the device, the config from
+the flags, the model by name at the data's point width, the batches on the
+device, the offline masks, device timing and the kernels' launch
+counters."""
 from __future__ import annotations
 
 import dataclasses
@@ -10,7 +11,8 @@ from typing import Dict, List, Sequence
 import numpy as np
 import torch
 
-from ..config import FSFConfig
+from ..config import FSFConfig, nusc_fsf_config, tiny_fsf_config
+from ..config_compat import load_fsf_config
 from ..data.masks import load_sample_masks, pack_mask_scores
 from ..ops import ccl, nms, sparse_conv
 from ..utils.containers import GroundTruth, PointBatch
@@ -31,6 +33,17 @@ def resolve_device(cpu: bool) -> torch.device:
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device; pass --cpu to run on the CPU")
     return torch.device("cuda")
+
+
+def config_from_args(args) -> FSFConfig:
+    """The tiny test config for ``--tiny`` / ``--synthetic``, else the
+    reference-style file of ``--config`` at the default capacities, else
+    the full nuScenes config."""
+    if args.tiny or args.synthetic:
+        return tiny_fsf_config()
+    if args.config:
+        return load_fsf_config(args.config)
+    return nusc_fsf_config()
 
 
 def model_config(cfg: FSFConfig, model: str, point_width: int) -> FSFConfig:

@@ -5,8 +5,10 @@ card (``--cpu``: on the host), write the detections as JSON and, with
 the scale × rotation × flip grid and fuses the union by rotated NMS;
 ``--tmpdir`` writes this rank's shard file and merges them on rank 0.
 :func:`run` serves a given config; :func:`main` builds the config from
-``--tiny`` / ``--synthetic`` (the tiny test config) or takes the full
-nuScenes config.
+``--tiny`` / ``--synthetic`` (the tiny test config), else from a
+reference-style config file (``--config``), else takes the full nuScenes
+config. ``--vis-dir`` writes BEV (and, for FSF, camera-mask) PNGs of the
+first ``--vis-max`` samples (``utils/visualize.py``; needs matplotlib).
 
     python -m fullysparsefusion_tpu_torch.cli.test --model fsf --checkpoint CKPT \
         --info-pkl data/nuscenes_infos_val.pkl --data-root data/nuscenes \
@@ -26,7 +28,7 @@ import torch
 import torch.distributed as dist
 
 from .. import synthetic as S
-from ..config import FSFConfig, nusc_fsf_config, tiny_fsf_config
+from ..config import FSFConfig
 from ..data.nuscenes import NuScenesReader
 from ..data.pipelines import collate_scene
 from ..data.tta import fuse_union, run_tta, tta_grid
@@ -35,12 +37,14 @@ from ..eval.detection import DetectionRecord, default_attributes, evaluate_detec
 from ..models.camera import CameraData
 from ..parallel.eval import merge_shard_results, shard_indices, write_shard_results
 from ..train.checkpoint import load_model_vars
-from .common import (MODELS, READER_POINT_WIDTH, build_model, kernel_launches, launches_since,
-                     load_masks, model_config, point_batch, resolve_device, timed)
+from ..utils.visualize import dump_bev, dump_camera_assignment
+from .common import (MODELS, READER_POINT_WIDTH, build_model, config_from_args, kernel_launches,
+                     launches_since, load_masks, model_config, point_batch, resolve_device, timed)
 
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser()
+    p.add_argument("--config", help="reference-style config file (config_compat)")
     p.add_argument("--checkpoint", help="a training checkpoint (cli.train's step_*.pt)")
     p.add_argument("--info-pkl")
     p.add_argument("--data-root")
@@ -63,6 +67,8 @@ def parse_args(argv=None):
     p.add_argument("--tta-no-flip", action="store_true")
     p.add_argument("--tmpdir", help="shard-file collect dir for multi-process eval")
     p.add_argument("--cpu", action="store_true", help="run on the host CPU")
+    p.add_argument("--vis-dir", help="per-sample BEV (+ camera) debug PNGs (needs matplotlib)")
+    p.add_argument("--vis-max", type=int, default=8, help="samples to visualize")
     return p.parse_args(argv)
 
 
@@ -148,6 +154,14 @@ def run(cfg: FSFConfig, args) -> Dict:
         v = res.valid.cpu().numpy()
         return res.boxes.cpu().numpy()[v], res.scores.cpu().numpy()[v], res.labels.cpu().numpy()[v]
 
+    def visualize(s, batch, planes, boxes, scores):
+        dump_bev(os.path.join(args.vis_dir, f"{s['token']}_bev.png"), batch["points"][:, :3],
+                 point_valid=batch["valid"], gt_boxes=s.get("gt_boxes"), pred_boxes=boxes,
+                 pred_scores=scores, title=str(s["token"]))
+        if planes is not None:
+            dump_camera_assignment(os.path.join(args.vis_dir, f"{s['token']}_cam0.png"),
+                                   planes[0][0, 0], title=f"{s['token']} cam0 masks")
+
     records, results, per_sample = [], [], []
     n_total = min(len(reader), args.max_samples) if args.max_samples else len(reader)
     own = shard_indices(n_total)
@@ -160,7 +174,7 @@ def run(cfg: FSFConfig, args) -> Dict:
         t0 = time.perf_counter()
         batch = collate(s)
         rec["collate_ms"] = (time.perf_counter() - t0) * 1e3
-        cam = None
+        cam = planes = None
         if use_fsf:
             t0 = time.perf_counter()
             planes = load_masks([s], args.mask_dir, fsd_cfg.num_classes, (args.img_h, args.img_w),
@@ -170,6 +184,8 @@ def run(cfg: FSFConfig, args) -> Dict:
             cam = CameraData.build(*planes, device=device)
             rec["input_ms"] = (time.perf_counter() - t0) * 1e3
         boxes, scores, labels = infer_sample(s, batch, cam, rec)
+        if args.vis_dir and len(per_sample) < args.vis_max:
+            visualize(s, batch, planes, boxes, scores)
         rec["detections"] = len(boxes)
         rec["launches"] = launches_since(before)
         per_sample.append(rec)
@@ -206,7 +222,7 @@ def run(cfg: FSFConfig, args) -> Dict:
 
 def main(argv: Optional[list] = None) -> None:
     args = parse_args(argv)
-    out = run(tiny_fsf_config() if args.tiny or args.synthetic else nusc_fsf_config(), args)
+    out = run(config_from_args(args), args)
     if args.synthetic or "out" not in out:
         return
     print(json.dumps({"samples": len(out["results"]),

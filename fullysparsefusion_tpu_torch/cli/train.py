@@ -9,12 +9,19 @@ detection losses and the foreground-threshold buffer by ``RuntimeSchedule``,
 appends ``train_log.jsonl`` records and writes ``step_{step:08d}.pt``
 checkpoints into ``--work-dir``. :func:`run` is the loop for a given config;
 :func:`main` builds the config from ``--tiny`` / ``--synthetic`` (the tiny
-test config) or takes the full nuScenes config.
+test config), else from a reference-style config file (``--config``,
+through ``config_compat.load_fsf_config``), else takes the full nuScenes
+config. ``--vis-dir`` writes a BEV PNG of the batch every
+``--vis-interval`` steps (``utils/visualize.py``; needs matplotlib).
 
     # full-fusion training on a nuScenes info tree, masks from the mask tool
     python -m fullysparsefusion_tpu_torch.cli.train --model fsf \
         --info-pkl data/nuscenes_infos_train.pkl --data-root data/nuscenes \
         --mask-dir data/masks --gt-db data/gt_db.pkl --work-dir work_dirs/fsf
+    # the model a reference config file describes, warm-started from a
+    # converted FSD pretrain (cli.convert_checkpoint)
+    python -m fullysparsefusion_tpu_torch.cli.train --model fsf \
+        --config FSF_nuScenes_config.py --init-from vars.pkl ...
     # smoke run on the synthetic scene, on the CPU
     python -m fullysparsefusion_tpu_torch.cli.train --synthetic --tiny --cpu --max-steps 2
 """
@@ -30,7 +37,7 @@ from typing import Dict, Optional
 import torch
 
 from .. import synthetic as S
-from ..config import FSFConfig, nusc_fsf_config, tiny_fsf_config
+from ..config import FSFConfig
 from ..data.gt_sampling import GTPasteSampler
 from ..data.nuscenes import NuScenesReader
 from ..models.camera import CameraData
@@ -38,13 +45,15 @@ from ..parallel.launch import spawn_ranks
 from ..parallel.train import Batch, make_optimizer, sharded_train_step
 from ..train import checkpoint as ckpt
 from ..train.hooks import RuntimeSchedule
-from .common import (LR_MULT_RULES, MODELS, READER_POINT_WIDTH, build_model, ground_truth,
-                     kernel_launches, launches_since, load_masks, model_config, point_batch,
-                     resolve_device)
+from ..utils.visualize import dump_bev
+from .common import (LR_MULT_RULES, MODELS, READER_POINT_WIDTH, build_model, config_from_args,
+                     ground_truth, kernel_launches, launches_since, load_masks, model_config,
+                     point_batch, resolve_device)
 
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser()
+    p.add_argument("--config", help="reference-style config file (config_compat)")
     p.add_argument("--info-pkl")
     p.add_argument("--data-root")
     p.add_argument("--work-dir", default="work_dirs/default")
@@ -77,6 +86,8 @@ def parse_args(argv=None):
     p.add_argument("--ranks", type=int, default=1,
                    help="data-parallel processes (one card each; gloo with --cpu)")
     p.add_argument("--cpu", action="store_true", help="run on the host CPU")
+    p.add_argument("--vis-dir", help="BEV debug PNGs of the training batches (needs matplotlib)")
+    p.add_argument("--vis-interval", type=int, default=200)
     return p.parse_args(argv)
 
 
@@ -131,6 +142,16 @@ def _reader_batches(reader: NuScenesReader, cfg: FSFConfig, args, use_fsf: bool,
                 torch.cuda.synchronize()
             host["input"] = (time.perf_counter() - t0) * 1e3
             yield Batch(pb, cam, gt, no_aug), host
+
+
+def _dump_batch(vis_dir: str, step: int, batch: Batch, paste: bool) -> None:
+    """The batch's first sample in bird's-eye view: points and GT boxes."""
+    pb, gt = batch.pb, batch.gt
+    sel = (pb.batch_idx == 0).cpu().numpy()
+    gv = gt.valid[0].cpu().numpy()
+    dump_bev(os.path.join(vis_dir, f"step{step:06d}_bev.png"),
+             pb.points[:, :3].cpu().numpy()[sel], point_valid=pb.valid.cpu().numpy()[sel],
+             gt_boxes=gt.boxes[0].cpu().numpy()[gv], title=f"step {step} paste={paste}")
 
 
 class _StepTimer:
@@ -220,6 +241,8 @@ def _train(cfg: FSFConfig, args, group=None) -> Dict:
         if reader is not None:
             reader.paste_enabled = schedule.augmentation_enabled(i)
         batch, host = next(batches)
+        if args.vis_dir and i % args.vis_interval == 0 and rank == 0:
+            _dump_batch(args.vis_dir, i, batch, schedule.augmentation_enabled(i))
         if cuda:
             torch.cuda.reset_peak_memory_stats()
         before = kernel_launches()
@@ -270,7 +293,7 @@ def run(cfg: FSFConfig, args) -> Dict:
 
 def main(argv: Optional[list] = None) -> None:
     args = parse_args(argv)
-    run(tiny_fsf_config() if args.tiny or args.synthetic else nusc_fsf_config(), args)
+    run(config_from_args(args), args)
 
 
 if __name__ == "__main__":

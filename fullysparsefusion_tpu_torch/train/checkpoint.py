@@ -7,13 +7,16 @@ A training run writes ``step_{step:08d}.pt`` files into its work directory
 finds the newest, :func:`load_model_vars` restores the model alone for
 inference, and :func:`load_jax_variables` warm-starts a model from a pickle
 of the JAX package's variables (what its training tool's ``--init-from``
-reads)."""
+reads, and what ``cli/convert_checkpoint.py`` writes).
+:func:`load_torch_state_dict` reads a reference (mmdet3d / mmcv) ``.pth``
+for ``train/torch_map.py``."""
 from __future__ import annotations
 
 import os
 import pickle
-from typing import Optional
+from typing import Dict, Optional
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -67,3 +70,19 @@ def load_jax_variables(path: str, model: nn.Module) -> None:
     with open(path, "rb") as f:
         tree = pickle.load(f)
     model.load_state_dict(from_jax_variables(tree), strict=True)
+
+
+def load_torch_state_dict(path: str) -> Dict[str, np.ndarray]:
+    """A reference ``.pth`` (mmcv's ``{"meta", "state_dict", ...}`` or a
+    bare ``state_dict``) → ``{name: ndarray}``, read on the CPU with
+    ``torch.load``'s default ``weights_only=True``. Raises, naming the file,
+    on a file it refuses or one that holds no dict of tensors."""
+    try:
+        sd = torch.load(path, map_location="cpu")
+    except Exception as e:
+        raise ValueError(f"{path}: not a loadable state dict ({e})") from e
+    if isinstance(sd, dict) and "state_dict" in sd:
+        sd = sd["state_dict"]
+    if not isinstance(sd, dict) or not all(torch.is_tensor(v) for v in sd.values()):
+        raise ValueError(f"{path}: holds no dict of tensors")
+    return {k: v.detach().numpy() for k, v in sd.items()}

@@ -107,3 +107,14 @@ def first_divergent(rows: List[Dict]) -> Optional[str]:
         if not r["ok"]:
             return r["name"]
     return None
+
+
+def save_activations(acts: Dict[str, np.ndarray], path: str) -> None:
+    """Taps to a compressed ``.npz`` under their keys, as the JAX package
+    saves them, so either package reads the other's dump."""
+    np.savez_compressed(path, **acts)
+
+
+def load_activations(path: str) -> Dict[str, np.ndarray]:
+    with np.load(path) as z:
+        return {k: z[k] for k in z.files}

@@ -22,6 +22,8 @@ layout transforms:
 A JAX gradient tree has the structure of ``params``, so
 ``from_jax_variables({"params": grads})`` maps it, with the same layout
 transforms, onto the names of ``model.named_parameters()``.
+:func:`to_jax_variables` is the inverse: the port's module → the flax tree
+(what ``train/torch_map.py`` walks to reach the reference's layout).
 """
 from __future__ import annotations
 
@@ -38,6 +40,7 @@ from .models.fsf import FSF, ZeroInitMLP
 from .models.htc import BN, HTC, DeformConvBlock
 from .models.layers import LayerNorm, MaskedBatchNorm
 from .models.sparse_unet import _ConvBlock
+from .models.sst import MultiHeadDotProductAttention
 from .models.two_stage import TwoStageFSD
 
 # truncated-normal std correction of flax's variance_scaling("truncated_normal")
@@ -109,6 +112,79 @@ def from_jax_variables(tree: Mapping) -> Dict[str, torch.Tensor]:
             raise KeyError(f"two JAX variables map to {key}")
         out[key] = torch.from_numpy(np.array(val, dtype=np.float32))
     return out
+
+
+def _np(t: torch.Tensor) -> np.ndarray:
+    """A copy: the tree never aliases the module's storage."""
+    return t.detach().to("cpu", torch.float32, copy=True).numpy()
+
+
+def _jax_leaves(module: nn.Module, parent: Optional[nn.Module], path: Tuple[str, ...]):
+    """``(collection, flax path, array)`` for the parameters and persistent
+    buffers that ``module`` holds itself: the inverse of
+    :func:`jax_state_items`' transforms."""
+    own = dict(module.named_parameters(recurse=False))
+    own.update((k, b) for k, b in module.named_buffers(recurse=False)
+               if k not in module._non_persistent_buffers_set)
+    if not own:
+        return
+    up, name = path[:-1], path[-1] if path else ""
+    if isinstance(parent, DeformConvBlock) and name == "conv_offset":
+        yield "params", up + ("conv_offset_w",), _np(own["weight"]).transpose(2, 3, 1, 0)
+        yield "params", up + ("conv_offset_b",), _np(own["bias"])
+    elif isinstance(module, nn.ConvTranspose2d):    # upsample_w [kh, kw, cin, cout]
+        yield "params", up + (f"{name}_w",), _np(own["weight"]).transpose(2, 3, 0, 1)
+        yield "params", up + (f"{name}_b",), _np(own["bias"])
+    elif isinstance(module, DeformConvBlock):        # w [kh, kw, cin / g, cout]
+        yield "params", path + ("w",), _np(own["weight"]).transpose(2, 3, 1, 0)
+    elif isinstance(module, nn.Conv2d):             # kernel [kh, kw, cin / g, cout]
+        yield "params", path + ("kernel",), _np(own["weight"]).transpose(2, 3, 1, 0)
+        if module.bias is not None:
+            yield "params", path + ("bias",), _np(own["bias"])
+    elif isinstance(module, nn.Linear) and isinstance(parent, MultiHeadDotProductAttention):
+        # DenseGeneral: [in, heads, head_dim] / [heads, head_dim, out]
+        kernel, heads = _np(own["weight"]).T, parent.num_heads
+        if name == "out":
+            yield "params", path + ("kernel",), kernel.reshape(heads, -1, kernel.shape[1])
+            yield "params", path + ("bias",), _np(own["bias"])
+        else:
+            yield "params", path + ("kernel",), kernel.reshape(kernel.shape[0], heads, -1)
+            yield "params", path + ("bias",), _np(own["bias"]).reshape(heads, -1)
+    elif isinstance(module, nn.Linear):
+        yield "params", path + ("kernel",), _np(own["weight"]).T
+        if module.bias is not None:
+            yield "params", path + ("bias",), _np(own["bias"])
+    elif isinstance(module, (LayerNorm, MaskedBatchNorm, BN)):
+        yield "params", path + ("scale",), _np(own["weight"])
+        yield "params", path + ("bias",), _np(own["bias"])
+        if "running_mean" in own:
+            yield "batch_stats", path + ("mean",), _np(own["running_mean"])
+            yield "batch_stats", path + ("var",), _np(own["running_var"])
+    elif isinstance(module, _ConvBlock):            # w [27, Cin, Cout] as is
+        yield "params", path + ("w",), _np(own["w"])
+    else:
+        raise KeyError(f"no JAX layout for {type(module).__name__} at {'.'.join(path)}")
+
+
+def to_jax_variables(model: nn.Module) -> Dict[str, Dict]:
+    """The port's ``state_dict`` → ``{"params": ..., "batch_stats": ...}``
+    as nested dicts of contiguous f32 NumPy arrays under the flax names and
+    layouts: the inverse of :func:`from_jax_variables` (which loads the
+    result back strictly and bitwise)."""
+    tree: Dict[str, Dict] = {"params": {}, "batch_stats": {}}
+    parents = {"": None}
+    for name, module in model.named_modules():
+        for child, _ in module.named_children():
+            parents[f"{name}.{child}" if name else child] = module
+        path = tuple(name.split(".")) if name else ()
+        for col, leaf_path, arr in _jax_leaves(module, parents[name], path):
+            node = tree[col]
+            for p in leaf_path[:-1]:
+                node = node.setdefault(p, {})
+            if leaf_path[-1] in node:
+                raise KeyError(f"two tensors map to {col}/{'/'.join(leaf_path)}")
+            node[leaf_path[-1]] = np.ascontiguousarray(arr)
+    return tree
 
 
 def init_parameters(model: nn.Module, generator: torch.Generator) -> nn.Module:

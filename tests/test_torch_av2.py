@@ -32,35 +32,36 @@ the refinement's included, is held on the JAX forward's own outputs.
 Gradients are not compared here (``test_torch_train.py`` holds them at the
 nuScenes shape): a JAX ``value_and_grad`` compile would double the file's
 time.
+
+``test_torch_av2_phases.py``, ``test_torch_av2_heads.py`` and
+``test_torch_av2_train_form.py`` hold more tests of this module's helpers
+and fixtures, at its tolerances, in files of at most five tests, so that
+xdist's ``--dist loadfile`` (files with more tests first) queues them behind
+``tests/test_train.py``, the Tier-1 run's longest file.
 """
 import dataclasses
 import pickle
 
 import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from fixtures import make_camera_data, make_lidar_scene, make_scene, with_noaug_channels
+from fixtures import make_camera_data, make_scene, with_noaug_channels
 from fullysparsefusion_tpu import config as jcfg
 from fullysparsefusion_tpu.data import av2 as jav2
 from fullysparsefusion_tpu.data import pipelines as jP
 from fullysparsefusion_tpu.eval.av2_detection import evaluate_av2 as j_evaluate_av2
 from fullysparsefusion_tpu.eval.detection import DetectionRecord as JRecord
 from fullysparsefusion_tpu.models.fsf import FSF as JFSF
-from fullysparsefusion_tpu.ops import sparse_conv as jsc
-from fullysparsefusion_tpu.ops import voxelize as jvox
 from fullysparsefusion_tpu_torch import config as tcfg
 from fullysparsefusion_tpu_torch import synthetic as S
 from fullysparsefusion_tpu_torch.data import av2 as tav2
 from fullysparsefusion_tpu_torch.data import pipelines as tP
 from fullysparsefusion_tpu_torch.eval.av2_detection import evaluate_av2
 from fullysparsefusion_tpu_torch.eval.detection import DetectionRecord
-from fullysparsefusion_tpu_torch.ops import sparse_conv as tsc
-from fullysparsefusion_tpu_torch.ops import voxelize as tvox
 from fullysparsefusion_tpu_torch.weights import build_fsf
-from test_torch_fsf import FAST_COMPILE, PHASES, _check, _numpy_variables, _task0
+from test_torch_fsf import FAST_COMPILE, _numpy_variables
 from test_torch_ddp_port import torch_one_thread  # noqa: F401 (autouse)
 
 BF16_CHAIN_TOL = 4e-3
@@ -142,28 +143,6 @@ def _stage_counts(vox, sc, xp, pb, cfg, caps):
     return out
 
 
-def test_av2_bench_scene_and_stage_counts_match_jax():
-    """The JAX package's AV2 bench scene, made by both packages, and its
-    UNet stages' true active sets (no stage clipped at the bench's caps)."""
-    sc, cam = S.make_av2_scene_arrays(0)
-    assert cam["masks"].shape == (1, 7, 1024, 775, 26) and int(cam["anno"][0, :, 8].sum()) > 0
-    del cam
-    pb, gt = make_lidar_scene(seed=0, n_cap=131072, max_gt=128, n_boxes=48, num_classes=26,
-                              point_dim=4, extent=190.0, n_rings=64, pts_per_ring=1600,
-                              n_walls=48, sweeps=2)
-    for k, v in (("points", pb.points), ("valid", pb.valid), ("gt_boxes", gt.boxes),
-                 ("gt_labels", gt.labels), ("gt_valid", gt.valid)):
-        _same(sc[k], v)
-    cfg, caps = tcfg.av2_fsf_config(), (98304, 163840, 163840, 131072, 65536)
-    tpb = dict(xyz=torch.from_numpy(sc["points"][:, :3].copy()),
-               batch_idx=torch.from_numpy(sc["batch_idx"]), valid=torch.from_numpy(sc["valid"]))
-    jpb = dict(xyz=pb.xyz, batch_idx=pb.batch_idx, valid=pb.valid)
-    got = _stage_counts(tvox, tsc, torch, tpb, cfg, caps)
-    assert got == _stage_counts(jvox, jsc, jnp, jpb, jcfg.av2_fsf_config(), caps)
-    assert got == [47281, 101421, 119199, 73537, 22712]
-    assert all(c < cap for c, cap in zip(got, AV2_STAGE_CAPS))
-
-
 # --- the tiny AV2-shaped FSF ---------------------------------------------------
 
 
@@ -229,59 +208,6 @@ def _to_torch(x):
     return torch.from_numpy(np.array(x))
 
 
-@pytest.mark.parametrize("phase", list(PHASES))
-def test_av2_phase_matches_jax(parity, phase):
-    ref, got = PHASES[phase](parity["jout"]), PHASES[phase](parity["out"])
-    assert set(ref) == set(got)
-    for name in ref:
-        _check(name, ref[name], got[name], BF16_CHAIN_TOL)
-
-
-def test_av2_shapes(parity):
-    """26 classes and code size 8 through every head; 7 cameras in the
-    lookup; the VFE sees 4 + 6 input channels."""
-    out, model = parity["out"], parity["model"]
-    assert out["seg_out"]["seg_logits"].shape[1] == 27
-    for head in (out["frustum"]["out"], out["fsd"], out["final"]):
-        assert head["cls_logits"].shape[1] == 26 and head["reg_preds"].shape[1] == 8
-    vfe = model.seg_core.DynamicScatterVFE_0.DynamicVFELayer_0.Dense_0
-    assert vfe.in_features == 10
-    assert parity["det"].boxes.shape[-1] == 7          # no velocity columns
-
-
-def test_av2_get_bboxes_matches_jax(parity):
-    jdet, det = parity["jdet"], parity["det"]
-    for f in ("valid", "labels", "boxes", "scores"):
-        _check(f"det.{f}", getattr(jdet, f), getattr(det, f), BF16_CHAIN_TOL)
-
-
-def test_av2_decode_on_identical_inputs_matches_jax(parity):
-    """26-class decode + NMS fed JAX's own final queries: no bf16 on the way."""
-    fin = {k: torch.from_numpy(np.array(v)) for k, v in parity["jout"]["final"].items()}
-    det = parity["model"].get_bboxes(dict(final=fin), 2)
-    for f in ("valid", "labels", "boxes", "scores"):
-        _check(f"det.{f}", getattr(parity["jdet"], f), getattr(det, f), F32_TOL)
-
-
-def test_av2_cluster_head_on_identical_inputs_matches_jax(parity):
-    fsd = parity["jout"]["fsd"]
-    with torch.no_grad():
-        out = parity["model"].fsd_branch.bbox_head(
-            torch.from_numpy(np.array(fsd["obj_feat"])),
-            torch.from_numpy(np.array(fsd["cluster_valid"])))
-    _check("cls_logits", _task0(fsd["cls_logits"]), out["cls_logits"], F32_TOL)
-    _check("reg_preds", _task0(fsd["reg_preds"]), out["reg_preds"], F32_TOL)
-
-
-def test_av2_scene_is_not_vacuous(parity):
-    out, det = parity["out"], parity["det"]
-    fsd = out["fsd"]
-    groups = fsd["cluster_group"][fsd["cluster_valid"]].unique()
-    assert len(groups) >= 2, groups                              # clusters in two groups
-    assert int(out["frustum"]["obj_valid"].sum()) > 0            # camera queries
-    assert int(det.valid.sum()) > 0                              # detections
-
-
 def _hold_losses(ref, got, tol, keys=None):
     for k in keys or ref:
         a, b = float(ref[k]), float(got[k])
@@ -291,34 +217,6 @@ def _hold_losses(ref, got, tol, keys=None):
             assert abs(a - b) <= RECALL_TOL * abs(a), (k, a, b)
         else:
             assert abs(a - b) <= tol * max(1.0, abs(a)), (k, a, b)
-
-
-def test_av2_losses_match_jax(parity):
-    """Eval-form BN: the port's own forward takes JAX's decisions, so every
-    loss term is held."""
-    jl, tl = parity["jout"]["losses"], parity["out"]["losses"]
-    assert set(jl) == set(tl)
-    assert not any("vel" in k for k in tl)                       # code size 8
-    _hold_losses(jl, tl, LOSS_TOL)
-    assert float(tl["fsd_num_pos"]) > 0 and float(tl["stage0_num_pos"]) > 0
-
-
-def test_av2_train_form_losses_on_jax_outputs_match_jax(parity):
-    """Train-form BN: every term, from the JAX forward's own outputs."""
-    jl, tl = parity["jtout"]["losses"], parity["recomputed"]
-    assert set(jl) == set(tl)
-    assert not any("vel" in k for k in tl)
-    _hold_losses(jl, tl, F32_TOL)
-
-
-def test_av2_train_form_forward_losses_match_jax(parity):
-    """Train-form BN, the port's own forward: the terms upstream of the
-    LiDAR branch's foreground decision (see the module docstring)."""
-    jl, tl = parity["jtout"]["losses"], parity["tout"]["losses"]
-    assert set(jl) == set(tl)
-    held = [k for k in jl if k.startswith(("loss_", "frustum_"))]
-    assert len(held) == 8
-    _hold_losses(jl, tl, LOSS_TOL, held)
 
 
 # --- the AV2 metric --------------------------------------------------------------

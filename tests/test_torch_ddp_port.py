@@ -34,6 +34,11 @@ gradients move by percents, in the JAX package too
 to the JAX package's two devices term by term and leaf by leaf, and
 ``chip_smoke.py`` holds it to one process on the card, where it meets every
 bound of ``tests/test_train.py``.
+
+``test_torch_ddp_port_syncbn.py`` holds more tests of this module's helpers
+and fixtures, at its tolerances, in files of at most five tests, so that
+xdist's ``--dist loadfile`` (files with more tests first) queues them behind
+``tests/test_train.py``, the Tier-1 run's longest file.
 """
 import contextlib
 import dataclasses
@@ -234,33 +239,6 @@ def spawn(fn, world, tmp_path, *args):
 
 
 BN_CASES = ["masked", "rank_all_invalid"]
-
-
-@pytest.mark.parametrize("case", BN_CASES)
-def test_sync_batchnorm_two_ranks_equal_one_layer_on_the_concatenated_rows(two_ranks, case):
-    (xs, valids, cot), ranks = two_ranks["bn"][case]
-    m = MaskedBatchNorm(xs[0].shape[1]).train()
-    with torch.no_grad():
-        m.weight.copy_(torch.linspace(0.5, 1.5, m.weight.numel()))
-        m.bias.copy_(torch.linspace(-0.2, 0.2, m.bias.numel()))
-    x = torch.as_tensor(np.concatenate(xs)).requires_grad_(True)
-    y = m(x, torch.as_tensor(np.concatenate(valids)))
-    y.backward(torch.as_tensor(np.concatenate(cot)))
-    split = np.cumsum([len(a) for a in xs])[:-1]
-    for name, ref in (("y", y), ("dx", x.grad)):
-        got = np.concatenate([r[name] for r in ranks])
-        np.testing.assert_allclose(got, ref.detach().numpy(), rtol=BN_TOL, atol=BN_TOL,
-                                   err_msg=name)
-    assert len(np.split(x.grad.numpy(), split)[1]) == len(xs[1])
-    # parameter gradients: the mean over ranks of each rank's; the one layer's is their sum
-    for name, ref in (("dweight", m.weight.grad), ("dbias", m.bias.grad)):
-        for r in ranks:
-            np.testing.assert_allclose(2 * r[name], ref.numpy(), rtol=BN_SUM_TOL,
-                                       atol=BN_SUM_TOL, err_msg=name)
-    for name in ("running_mean", "running_var"):
-        assert np.array_equal(ranks[0][name], ranks[1][name]), name
-        np.testing.assert_allclose(ranks[0][name], getattr(m, name).numpy(), rtol=BN_TOL,
-                                   atol=BN_TOL, err_msg=name)
 
 
 def test_sharded_train_step_at_world_size_one_equals_train_step_bitwise(tmp_path):

@@ -12,8 +12,13 @@ are equal; f32 outputs of the same operations on the same f32 inputs agree
 within ``F32_TOL`` 1e-5 relative to max(1, |ref|) (sums, norms and
 transcendental functions in another order or library), gradients of the
 head within ``F32_TOL`` of the largest entry.
+
+``test_torch_fsd_parts_heads.py`` and ``test_torch_fsd_parts_clusters.py``
+hold more tests of this module's helpers and fixtures, at its tolerances, in
+files of at most five tests, so that xdist's ``--dist loadfile`` (files with
+more tests first) queues them behind ``tests/test_train.py``, the Tier-1
+run's longest file.
 """
-import dataclasses
 import functools
 
 import jax
@@ -21,11 +26,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-import torch.distributed as dist
 
 from fullysparsefusion_tpu.config import NUSC_CLASS_NAMES, NUSC_GROUPS
 from fullysparsefusion_tpu.config import HeadConfig as JHeadConfig
-from fullysparsefusion_tpu.config import tiny_fsd_config as j_tiny_fsd_config
 from fullysparsefusion_tpu.models import fsd as jfsd
 from fullysparsefusion_tpu.models import heads as jh
 from fullysparsefusion_tpu.models.layers import get_activation as j_get_activation
@@ -37,14 +40,12 @@ from fullysparsefusion_tpu.ops import pallas_kernels
 from fullysparsefusion_tpu.utils.containers import PointBatch as JPB
 from fullysparsefusion_tpu_torch import synthetic as S
 from fullysparsefusion_tpu_torch.config import HeadConfig, tiny_fsd_config
-from fullysparsefusion_tpu_torch.models import fsd as tfsd
 from fullysparsefusion_tpu_torch.models import heads as th
 from fullysparsefusion_tpu_torch.models.layers import get_activation
 from fullysparsefusion_tpu_torch.ops import ccl, fps, geometry
 from fullysparsefusion_tpu_torch.parallel import train as T
 from fullysparsefusion_tpu_torch.synthetic import ccl_problem_arrays
-from fullysparsefusion_tpu_torch.train.hooks import RuntimeSchedule
-from fullysparsefusion_tpu_torch.weights import build_fsd, from_jax_variables
+from fullysparsefusion_tpu_torch.weights import build_fsd
 from test_torch_ddp_port import torch_one_thread  # noqa: F401 (autouse)
 from test_torch_kernels import _boxes
 from test_torch_losses import _close, _eq, _gt_arrays, _gts, _queries, _t
@@ -137,31 +138,6 @@ def pallas_nms(monkeypatch):
                         functools.partial(pallas_kernels.nms_scan_pallas, interpret=True))
 
 
-@pytest.mark.parametrize("tasks", [NUSC_GROUPS, (NUSC_CLASS_NAMES,)],
-                         ids=["six_tasks", "one_task"])
-def test_multi_task_get_bboxes_matches_jax(pallas_nms, tasks):
-    _, (xyz, qb, qv), cls, reg, _ = _head_inputs(7, tasks=tasks)
-    got = th.multi_task_get_bboxes([_t(a) for a in cls], [_t(a) for a in reg], _t(xyz),
-                                   _t(qb), _t(qv), 2, HeadConfig(**HEAD_KW), tasks,
-                                   NUSC_CLASS_NAMES)
-    ref = jax.jit(functools.partial(jh.multi_task_get_bboxes, batch_size=2,
-                                    cfg=JHeadConfig(**HEAD_KW), tasks=tasks,
-                                    class_names=NUSC_CLASS_NAMES))(
-        [jnp.asarray(a) for a in cls], [jnp.asarray(a) for a in reg], jnp.asarray(xyz),
-        jnp.asarray(qb), jnp.asarray(qv))
-    assert got.valid.shape == (2, len(tasks) * HEAD_KW["max_num"])
-    _eq(got.valid, ref.valid), _eq(got.labels, ref.labels)
-    _close(got.boxes, ref.boxes), _close(got.scores, ref.scores)
-    labels = got.labels[got.valid]
-    assert (labels >= 0).all() and len(labels.unique()) >= 6
-    if len(tasks) > 1:      # task t's slots carry only task t's global classes
-        tables = th.task_label_tables(NUSC_CLASS_NAMES, tasks)[1]
-        per = got.labels.reshape(2, len(tasks), -1)
-        for t_, table in enumerate(tables):
-            lab = per[:, t_][got.valid.reshape(2, len(tasks), -1)[:, t_]]
-            assert set(lab.tolist()) <= set(table)
-
-
 # ---------------------------------------------------------------------------
 # the IoU branch, boxes_iou_3d, activations
 # ---------------------------------------------------------------------------
@@ -189,48 +165,6 @@ def _iou_branch_case(mode):
     xyz[:8, 1] = rng.normal(0, 0.4, 8)
     xyz[:8, 2] = -0.5
     return cfg_kw, feats, valid, (boxes, labels, gvalid), xyz
-
-
-@pytest.mark.parametrize("mode", ["iou", "dist"])
-def test_iou_branch_head_loss_and_gradients_match_jax(mode):
-    """The head's forward, every loss term and the gradient of the summed
-    loss with respect to the head's parameters. In "iou" mode the labels
-    come from the detached decoded predictions, as the JAX package's
-    ``stop_gradient`` makes them."""
-    cfg_kw, feats, valid, gt_arrays, xyz = _iou_branch_case(mode)
-    names = ("a", "b", "c")
-    jhead = jh.SparseClusterHead(cfg=JHeadConfig(**cfg_kw), tasks=(names,), class_names=names)
-    params = jhead.init(jax.random.key(0), jnp.asarray(feats), jnp.asarray(valid), False)["params"]
-    batch = np.zeros(len(xyz), np.int32)
-    jgt, tgt = _gts(gt_arrays)
-
-    def jloss(p):
-        o = jhead.apply({"params": p}, jnp.asarray(feats), jnp.asarray(valid), False)
-        losses = jh.cluster_head_loss(o["cls_logits"][0], o["reg_preds"][0], jnp.asarray(xyz),
-                                      jnp.asarray(batch), jnp.asarray(valid), jgt,
-                                      JHeadConfig(**cfg_kw), iou_logits=o["iou_logits"][0])
-        return sum(v for k, v in losses.items() if "loss" in k), (o, losses)
-
-    (_, (jo, jl)), jgrad = jax.jit(jax.value_and_grad(jloss, has_aux=True))(params)
-    head = th.SparseClusterHead(HeadConfig(**cfg_kw), (names,), names)
-    head.load_state_dict(from_jax_variables({"params": params}), strict=True)
-    o = head(_t(feats), _t(valid))
-    for k in ("cls_logits", "reg_preds", "iou_logits"):
-        _close(o[k], jo[k][0])
-        _close(o[f"{k}_tasks"][0], jo[k][0])
-    losses = th.cluster_head_loss(o["cls_logits"], o["reg_preds"], _t(xyz), _t(batch),
-                                  _t(valid), tgt, HeadConfig(**cfg_kw),
-                                  iou_logits=o["iou_logits"])
-    assert set(losses) == set(jl) and "loss_iou" in losses and "loss_corner" in losses
-    for k in jl:
-        _close(losses[k], jl[k])
-    assert float(losses["num_pos"]) >= 4
-    sum(v for k, v in losses.items() if "loss" in k).backward()
-    ref = from_jax_variables({"params": jgrad})
-    for n, p in head.named_parameters():
-        scale = max(1.0, float(np.abs(ref[n].numpy()).max()))
-        _close(p.grad, ref[n], scale=scale)
-    assert float(head.SeparateHead_0.MLP_5.Dense_0.weight.grad.abs().sum()) > 0
 
 
 def test_boxes_iou_3d_matches_jax():
@@ -295,29 +229,6 @@ def test_furthest_point_sample_and_ball_group_match_jax(k, case):
     _eq(lab, jfps.ball_group(jnp.asarray(xyz), jnp.asarray(valid), jnp.asarray(xyz)[jp], js, 1.5))
 
 
-@pytest.mark.parametrize("method", ["ssg", "ccl"])
-@pytest.mark.parametrize("batch_size", [1, 3])
-def test_hybrid_cluster_one_group_matches_jax(method, batch_size):
-    jcfg = j_tiny_fsd_config()
-    cfg = tiny_fsd_config()
-    xyz, b, valid = _centers(2, batch=batch_size)
-    kw = dict(method=method, num_fps=32, radius=1.0, batch_size=batch_size)
-    labelled = 0
-    for g in (0, 4):
-        lab, ok = tfsd.hybrid_cluster_one_group(_t(xyz), _t(b), _t(valid), g, cfg, **kw)
-        jlab, jok = jfsd.hybrid_cluster_one_group(jnp.asarray(xyz), jnp.asarray(b),
-                                                  jnp.asarray(valid), g, jcfg, **kw)
-        _eq(lab, jlab), _eq(ok, jok)
-        assert lab.dtype == torch.int32
-        labelled += int((lab >= 0).sum())
-        if batch_size > 1:       # labels of different samples never collide
-            for s in range(batch_size):
-                mine = set(lab[(_t(b) == s) & (lab >= 0)].tolist())
-                other = set(lab[(_t(b) != s) & (lab >= 0)].tolist())
-                assert not mine & other
-    assert labelled > 20
-
-
 @pytest.mark.parametrize("case", ["random", "mixed_batch", "all_invalid"])
 def test_connected_components_bev_matches_jax(case):
     xy, batch, valid = ccl_problem_arrays(case, 1, 300, seed=4)
@@ -363,65 +274,10 @@ def _jax_variable_shapes(jcfg):
     return jax.eval_shape(lambda k: model.init(k, jpb, 2, None, False), jax.random.key(0))
 
 
-def test_build_fsd_loads_a_jax_tree_strictly_with_the_iou_branch():
-    """Six tasks with the IoU branch: flax's names (``SegmentorCore_0``,
-    ``VoteSegHead_0``, ``SeparateHead_{t}``, the ``iou`` attr's ``MLP_5``)
-    come out letter for letter, every leaf maps. (``test_torch_fsd.py``
-    loads the trees of one and six tasks without it.)"""
-    jcfg = j_tiny_fsd_config(tasks=NUSC_GROUPS)
-    jcfg = dataclasses.replace(jcfg, head=dataclasses.replace(jcfg.head, with_iou=True))
-    cfg = tiny_fsd_config(tasks=NUSC_GROUPS)
-    cfg = dataclasses.replace(cfg, head=dataclasses.replace(cfg.head, with_iou=True))
-    shapes = _jax_variable_shapes(jcfg)
-    jvars = jax.tree_util.tree_map(lambda s: np.full(s.shape, 0.5, np.float32), shapes)
-    model = build_fsd(cfg, device="cpu", jax_variables=jvars)
-    assert set(from_jax_variables(jvars)) == set(model.state_dict())
-    heads = [n for n, _ in model.query_branch.bbox_head.named_children()]
-    assert heads == ["MLP_0"] + [f"SeparateHead_{t}" for t in range(6)]
-    score = model.query_branch.bbox_head.SeparateHead_5.MLP_4
-    assert score.Dense_2.out_features == len(NUSC_GROUPS[5])
-    assert hasattr(model.query_branch.bbox_head.SeparateHead_0, "MLP_5")
-    short = dict(jvars, params={k: v for k, v in jvars["params"].items() if k != "segmentor"})
-    with pytest.raises(RuntimeError, match="segmentor"):
-        build_fsd(cfg, device="cpu", jax_variables=short)
-    assert not model.training
-
-
 def _fsd_batch(cfg, seed=0):
     sc = S.make_scene_arrays(seed=seed, n_cap=cfg.caps.points, max_gt=cfg.caps.max_gt)
     return T.Batch(S.to_point_batch(sc, device="cpu"), None, S.to_ground_truth(sc, device="cpu"),
                    None)
-
-
-def test_fsd_sharded_train_step_at_world_size_one_equals_train_step_bitwise(tmp_path):
-    """``sharded_train_step`` under a gloo group of world size 1 in this
-    process, against ``train_step`` from the same state: losses, gradient
-    norm, parameters and BN buffers bitwise equal."""
-    cfg = tiny_fsd_config(tasks=NUSC_GROUPS)
-    state = build_fsd(cfg, seed=0, device="cpu").state_dict()
-    batch = _fsd_batch(cfg)
-    out = {}
-    dist.init_process_group("gloo", init_method=f"file://{tmp_path / 'rendezvous'}",
-                            rank=0, world_size=1)
-    try:
-        for name, group in (("train_step", None), ("sharded", dist.group.WORLD)):
-            model = build_fsd(cfg, device="cpu")
-            model.load_state_dict(state)
-            opt = T.make_optimizer(model, total_steps=10,
-                                   lr_mult_rules={"segmentor.SegmentorCore_0": 0.2})
-            loss, losses, gnorm = T.sharded_train_step(model, opt, RuntimeSchedule(), batch, 0,
-                                                       group)
-            out[name] = (float(loss), {k: float(v) for k, v in losses.items()}, float(gnorm),
-                         model.state_dict())
-    finally:
-        dist.destroy_process_group()
-    a, b = out["train_step"], out["sharded"]
-    assert a[:3] == b[:3]
-    assert any(k.startswith("task5_") for k in a[1]) and a[1]["task1_num_pos"] > 0
-    for k, v in a[3].items():
-        assert torch.equal(v, b[3][k]), k
-    assert not torch.equal(a[3]["segmentor.VoteSegHead_0.Dense_0.weight"],
-                           state["segmentor.VoteSegHead_0.Dense_0.weight"])
 
 
 def test_six_task_detection_weight_zero_leaves_the_heads_without_gradient():

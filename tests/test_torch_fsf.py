@@ -18,6 +18,12 @@ compared entry by entry with the port's. Tolerances:
 UNet paths at this size (batch 2, grid 64 x 64 x 16): stages 0 and 1 take
 the gather path (kernel K1's plain version), stage 2 (16 x 16 x 4, capacity
 1024) the dense conv3d path; the test asserts both ran.
+
+``test_torch_fsf_phases.py`` and ``test_torch_fsf_heads.py`` hold more tests
+of this module's helpers and fixtures, at its tolerances, in files of at
+most five tests, so that xdist's ``--dist loadfile`` (files with more tests
+first) queues them behind ``tests/test_train.py``, the Tier-1 run's longest
+file.
 """
 import jax
 import jax.numpy as jnp
@@ -34,7 +40,7 @@ from fullysparsefusion_tpu_torch.config import tiny_fsf_config
 from fullysparsefusion_tpu_torch.models import roi as troi
 from fullysparsefusion_tpu_torch.models import sparse_unet
 from fullysparsefusion_tpu_torch.ops import sparse_conv
-from fullysparsefusion_tpu_torch.weights import build_fsf, from_jax_variables
+from fullysparsefusion_tpu_torch.weights import build_fsf
 from test_torch_ddp_port import torch_one_thread  # noqa: F401 (autouse)
 
 BF16_CHAIN_TOL = 4e-3
@@ -161,51 +167,6 @@ def _task0(x):
     return x[0] if isinstance(x, (list, tuple)) else x
 
 
-@pytest.mark.parametrize("phase", list(PHASES))
-def test_phase_matches_jax(parity, phase):
-    ref = PHASES[phase](parity["jout"])
-    got = PHASES[phase](parity["out"])
-    assert set(ref) == set(got)
-    for name in ref:
-        _check(name, ref[name], got[name], BF16_CHAIN_TOL)
-
-
-def test_get_bboxes_matches_jax(parity):
-    jdet, det = parity["jdet"], parity["det"]
-    for f in ("valid", "labels", "boxes", "scores"):
-        _check(f"det.{f}", getattr(jdet, f), getattr(det, f), BF16_CHAIN_TOL)
-
-
-def test_scene_is_not_vacuous(parity):
-    out, det = parity["out"], parity["det"]
-    assert int(out["frustum"]["obj_valid"].sum()) > 0          # camera queries
-    assert int(out["fsd"]["num_clusters"]) > 0                  # LiDAR clusters
-    assert int(det.valid.sum()) > 0                             # detections
-    # the camera scores reach the point features through the enhancement MLP
-    assert float(parity["model"].seg_enhance_mlp.Dense_1.weight.detach().abs().sum()) > 0
-
-
-def test_unet_took_gather_and_dense_paths(parity):
-    """Stages 0-1 run the gather conv (9 convs), stage 2 the dense conv3d (2 convs)."""
-    assert parity["counts"] == dict(gather=9, dense=2)
-
-
-def test_decode_on_identical_inputs_matches_jax(parity):
-    """get_bboxes fed JAX's own final queries: no bf16 on the way."""
-    fin = {k: torch.from_numpy(np.array(v)) for k, v in parity["jout"]["final"].items()}
-    det = parity["model"].get_bboxes(dict(final=fin), 2)
-    for f in ("valid", "labels", "boxes", "scores"):
-        _check(f"det.{f}", getattr(parity["jdet"], f), getattr(det, f), F32_TOL)
-
-
-def test_cluster_head_on_identical_inputs_matches_jax(parity):
-    fsd = parity["jout"]["fsd"]
-    out = parity["model"].fsd_branch.bbox_head(torch.from_numpy(np.array(fsd["obj_feat"])),
-                                               torch.from_numpy(np.array(fsd["cluster_valid"])))
-    _check("cls_logits", fsd["cls_logits"], out["cls_logits"], F32_TOL)
-    _check("reg_preds", fsd["reg_preds"], out["reg_preds"], F32_TOL)
-
-
 def test_roi_grid_pooling_on_identical_inputs_matches_jax():
     rng = np.random.default_rng(0)
     n, q = 3000, 40
@@ -229,18 +190,3 @@ def test_roi_grid_pooling_on_identical_inputs_matches_jax():
         _check(f, getattr(ref, f), getattr(got, f), 0)
     _check("geometry", ref.geometry, got.geometry, F32_TOL)
     assert 100 < int(got.valid.sum()) < 2048
-
-
-def test_from_jax_variables_is_strict(parity):
-    sd = from_jax_variables(parity["jvars"])
-    assert set(sd) == set(parity["model"].state_dict())
-    extra = dict(parity["jvars"], params=dict(parity["jvars"]["params"], stray={"w": np.zeros(3)}))
-    with pytest.raises(RuntimeError, match="stray"):
-        build_fsf(parity["cfg"], device="cpu", jax_variables=extra)
-    odd = dict(parity["jvars"], params=dict(parity["jvars"]["params"], odd={"gamma": np.zeros(3)}))
-    with pytest.raises(KeyError, match="unmapped"):
-        from_jax_variables(odd)
-    short = dict(parity["jvars"], params={k: v for k, v in parity["jvars"]["params"].items()
-                                          if k != "seg_head"})
-    with pytest.raises(RuntimeError, match="seg_head"):
-        build_fsf(parity["cfg"], device="cpu", jax_variables=short)

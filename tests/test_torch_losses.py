@@ -8,31 +8,29 @@ f32 outputs of the same operations on the same f32 inputs agree within
 1e-5 relative (``F32_TOL``: sums, norms and transcendental functions in
 another order or library), except the projected 2D boxes, which divide by
 depth and are compared within 1e-5 of the canvas size.
+
+``test_torch_losses_cluster_head.py`` and ``test_torch_losses_geometry.py``
+hold more tests of this module's helpers and fixtures, at its tolerances, in
+files of at most five tests, so that xdist's ``--dist loadfile`` (files with
+more tests first) queues them behind ``tests/test_train.py``, the Tier-1
+run's longest file.
 """
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from fullysparsefusion_tpu.config import HeadConfig as JHeadConfig
-from fullysparsefusion_tpu.config import VoteSegmentorConfig as JSegConfig
 from fullysparsefusion_tpu.core import assigners as ja
 from fullysparsefusion_tpu.core import losses as jl
 from fullysparsefusion_tpu.core.coders import BasePointBBoxCoder as JCoder
-from fullysparsefusion_tpu.models import heads as jh
-from fullysparsefusion_tpu.models import segmentor as jseg
 from fullysparsefusion_tpu.ops import geometry as jg
 from fullysparsefusion_tpu.utils.containers import GroundTruth as JGT
-from fullysparsefusion_tpu.utils.containers import PointBatch as JPB
 from fullysparsefusion_tpu_torch import synthetic as S
-from fullysparsefusion_tpu_torch.config import HeadConfig, VoteSegmentorConfig
 from fullysparsefusion_tpu_torch.core import assigners as ta
 from fullysparsefusion_tpu_torch.core import losses as tl
 from fullysparsefusion_tpu_torch.core.coders import BasePointBBoxCoder
-from fullysparsefusion_tpu_torch.models import heads as th
-from fullysparsefusion_tpu_torch.models import segmentor as tseg
 from fullysparsefusion_tpu_torch.ops import geometry as tg
-from fullysparsefusion_tpu_torch.utils.containers import GroundTruth, PointBatch
+from fullysparsefusion_tpu_torch.utils.containers import GroundTruth
 from test_torch_ddp_port import torch_one_thread  # noqa: F401 (autouse)
 
 F32_TOL = 1e-5
@@ -133,17 +131,6 @@ def test_corners_and_iou_2d_match_jax():
     assert torch.allclose(got.diagonal()[:3], torch.ones(3))
 
 
-def test_hull_canvas_aabb_matches_jax():
-    rng = np.random.default_rng(4)
-    pts = rng.uniform(-60, 160, (40, 8, 2)).astype(np.float32)
-    pts[:5] = rng.uniform(300, 400, (5, 8, 2))      # off the canvas: empty
-    got, ne = tg.hull_canvas_aabb(_t(pts), 100.0, 80.0)
-    ref, rne = jg.hull_canvas_aabb(jnp.asarray(pts), 100.0, 80.0)
-    _eq(ne, rne)
-    _close(got, ref, scale=100.0)
-    assert not ne[:5].any() and ne[5:].any()
-
-
 # ---------------------------------------------------------------------------
 # losses and coder
 # ---------------------------------------------------------------------------
@@ -189,26 +176,6 @@ def test_coder_encode_decode_match_jax(code_size):
 
 def _lidar2img():
     return S.make_camera_arrays(*_gt_arrays(0), img_h=IMG_H, img_w=IMG_W)["lidar2img"]
-
-
-@pytest.mark.parametrize("n_valid", [(5, 3), (0, 2), (0, 0)])
-def test_point_in_box_and_projection_match_jax(n_valid):
-    arrays = _gt_arrays(7, n_valid=n_valid)
-    jgt, tgt = _gts(arrays)
-    for a, b in zip(ta.flatten_gt(tgt), ja.flatten_gt(jgt)):
-        _eq(a, b)
-    xyz, qb, qv = _queries(8, _gt_arrays(7)[0])
-    for eh in (0.0, 0.5):
-        _eq(ta.assign_point_in_box(_t(xyz), _t(qb), _t(qv), tgt, eh),
-            ja.assign_point_in_box(jnp.asarray(xyz), jnp.asarray(qb), jnp.asarray(qv), jgt, eh))
-    l2i = _lidar2img()
-    got = ta.build_gt_boxes_2d(tgt, _t(l2i), IMG_W, IMG_H)
-    ref = ja.build_gt_boxes_2d(jgt, jnp.asarray(l2i), IMG_W, IMG_H)
-    for i in (1, 2, 3, 4):
-        _eq(got[i], ref[i])
-    _close(got[0], ref[0], scale=IMG_W)
-    if n_valid[0]:
-        assert got[3].any()
 
 
 def test_max_iou_assign_2d_matches_jax_with_ties():
@@ -290,58 +257,3 @@ def test_hybrid_assign_matches_jax(case):
 # ---------------------------------------------------------------------------
 # segmentor and cluster-head losses on the same inputs
 # ---------------------------------------------------------------------------
-
-
-def test_segmentor_targets_and_loss_match_jax():
-    sc = S.make_scene_arrays(seed=3, n_cap=1400)
-    jgt, tgt = _gts((sc["gt_boxes"], sc["gt_labels"], sc["gt_valid"]))
-    jpb = JPB(points=jnp.asarray(sc["points"]), batch_idx=jnp.asarray(sc["batch_idx"]),
-              valid=jnp.asarray(sc["valid"]))
-    tpb = PointBatch(_t(sc["points"]), _t(sc["batch_idx"]), _t(sc["valid"]))
-    got = tseg.segmentor_targets(tpb, tgt, 10)
-    ref = jseg.segmentor_targets(jpb, jgt, 10)
-    _eq(got[0], ref[0]), _close(got[1], ref[1]), _eq(got[2], ref[2])
-    assert int(got[2].sum()) > 100 and (got[0] == 10).any()
-    rng = np.random.default_rng(16)
-    n = sc["points"].shape[0]
-    out = dict(seg_logits=rng.normal(0, 2, (n, 11)).astype(np.float32),
-               vote_preds=rng.normal(0, 1, (n, 33)).astype(np.float32),
-               valid=sc["valid"] & (rng.random(n) > 0.05))
-    for cfg_kw in (dict(), dict(bg_class_weight=0.5, seg_loss_weight=3.0, vote_loss_weight=2.0)):
-        tl_ = tseg.segmentor_loss({k: _t(v) for k, v in out.items()}, *got,
-                                  VoteSegmentorConfig(**cfg_kw))
-        jl_ = jseg.segmentor_loss({k: jnp.asarray(v) for k, v in out.items()}, *ref,
-                                  JSegConfig(**cfg_kw))
-        assert set(tl_) == set(jl_)
-        for k in jl_:
-            _close(tl_[k], jl_[k])
-
-
-@pytest.mark.parametrize("variant", ["in_box", "given_assign", "corner", "code8", "empty_gt"])
-def test_cluster_head_loss_matches_jax(variant):
-    arrays = _gt_arrays(17, n_valid=(0, 0) if variant == "empty_gt" else (5, 3))
-    jgt, tgt = _gts(arrays)
-    xyz, qb, qv = _queries(18, _gt_arrays(17)[0])
-    q = len(xyz)
-    code = 8 if variant == "code8" else 10
-    rng = np.random.default_rng(19)
-    cls = rng.normal(0, 2, (q, 10)).astype(np.float32)
-    reg = rng.normal(0, 0.5, (q, code)).astype(np.float32)
-    kw = dict(code_size=code, with_corner_loss=variant == "corner")
-    assign = None
-    if variant == "given_assign":
-        assign = rng.integers(-1, 16, q).astype(np.int32)
-        assign[~arrays[2].reshape(-1)[assign.clip(0)]] = -1
-    got = th.cluster_head_loss(_t(cls), _t(reg), _t(xyz), _t(qb), _t(qv), tgt, HeadConfig(**kw),
-                               assign=None if assign is None else _t(assign), prefix="p_")
-    ref = jh.cluster_head_loss(jnp.asarray(cls), jnp.asarray(reg), jnp.asarray(xyz),
-                               jnp.asarray(qb), jnp.asarray(qv), jgt, JHeadConfig(**kw),
-                               assign=None if assign is None else jnp.asarray(assign),
-                               prefix="p_")
-    assert set(got) == set(ref)
-    for k in ref:
-        _close(got[k], ref[k])
-    if variant != "empty_gt":
-        assert float(got["p_num_pos"]) > 0
-    _eq(th.assign_clusters_in_box(_t(xyz), _t(qb), _t(qv), tgt),
-        jh.assign_clusters_in_box(jnp.asarray(xyz), jnp.asarray(qb), jnp.asarray(qv), jgt))

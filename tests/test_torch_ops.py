@@ -5,29 +5,29 @@ points, ``voxel_downsample`` and the absolute-coordinate box coder. Integer
 and bool outputs
 must be equal; float outputs agree within 1e-5 (f32 on both sides, sums in
 another order). ``test_torch_kernels.py`` holds the CUDA kernels to the plain
-versions on a card."""
+versions on a card.
+
+``test_torch_ops_nms.py`` and ``test_torch_ops_geometry.py`` hold more tests
+of this module's helpers and fixtures, at its tolerances, in files of at
+most five tests, so that xdist's ``--dist loadfile`` (files with more tests
+first) queues them behind ``tests/test_train.py``, the Tier-1 run's longest
+file.
+"""
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from fullysparsefusion_tpu.core.coders import ABSPointBBoxCoder as JABSCoder
-from fullysparsefusion_tpu.ops import geometry as jgeo
 from fullysparsefusion_tpu.ops import segment as jseg
 from fullysparsefusion_tpu.ops.ccl import connected_components_bev
-from fullysparsefusion_tpu.ops.ccl import connected_components_bev_batched as j_ccl_batched
-from fullysparsefusion_tpu.ops.nms import multiclass_nms_bev as j_multiclass_nms_one
-from fullysparsefusion_tpu.ops.nms import multiclass_nms_bev_batched as j_multiclass_nms
-from fullysparsefusion_tpu.ops.nms import nms_bev_mask as j_nms_bev_mask
 from fullysparsefusion_tpu.ops.nms import nms_mask_from_iou as j_nms_mask
 from fullysparsefusion_tpu.ops.pallas_kernels import nms_scan_pallas
-from fullysparsefusion_tpu.ops.projection import points_in_mask_compact as j_pim
-from fullysparsefusion_tpu.ops.projection import project_points_2d as j_project
 from fullysparsefusion_tpu.ops.voxelize import voxel_downsample as j_voxel_downsample
 from fullysparsefusion_tpu.ops.voxelize import voxelize_points as j_voxelize
 from fullysparsefusion_tpu.utils.gather import masked_gather as j_masked_gather
 from fullysparsefusion_tpu_torch.core.coders import ABSPointBBoxCoder
-from fullysparsefusion_tpu_torch.ops import ccl, geometry, nms, projection, segment
+from fullysparsefusion_tpu_torch.ops import ccl, nms, segment
 from fullysparsefusion_tpu_torch.ops.voxelize import voxel_downsample, voxelize_points
 from fullysparsefusion_tpu_torch.synthetic import CCL_CASES, ccl_problem_arrays
 from fullysparsefusion_tpu_torch.utils.gather import masked_gather
@@ -62,25 +62,6 @@ def test_unique_segments_exact(capacity):
     uk, sv, ns = segment.unique_keys_sorted(t(keys), t(valid), capacity)
     ruk, rsv, rns = jseg.unique_keys_sorted(jnp.asarray(keys), jnp.asarray(valid), capacity)
     eq(uk, ruk), eq(sv, rsv), eq(ns, rns)
-
-
-def test_segment_reductions_and_ingroup_indices():
-    rng = np.random.default_rng(1)
-    cap = 64
-    seg_id = rng.integers(0, cap + 1, 700).astype(np.int32)   # cap = trash
-    feat = rng.normal(size=(700, 5)).astype(np.float32)
-    counts = np.bincount(seg_id, minlength=cap + 1)[:cap].astype(np.int32)
-    close(segment.segment_sum(t(feat), t(seg_id), cap),
-          jseg.segment_sum(jnp.asarray(feat), jnp.asarray(seg_id), cap))
-    close(segment.segment_mean(t(feat), t(seg_id), cap, counts=t(counts)),
-          jseg.segment_mean(jnp.asarray(feat), jnp.asarray(seg_id), cap, counts=jnp.asarray(counts)))
-    for name in ("segment_max", "segment_min"):
-        eq(getattr(segment, name)(t(feat), t(seg_id), cap, empty_value=-3.0),
-           getattr(jseg, name)(jnp.asarray(feat), jnp.asarray(seg_id), cap, empty_value=-3.0))
-    groups = rng.integers(0, 9, 300).astype(np.int32)
-    valid = rng.random(300) > 0.3
-    eq(segment.ingroup_indices(t(groups), t(valid)),
-       jseg.ingroup_indices(jnp.asarray(groups), jnp.asarray(valid)))
 
 
 @pytest.mark.parametrize("capacity", [10, 200, 400])
@@ -188,21 +169,6 @@ def test_ccl_problem_cases_match_union_find(case):
         assert comps[1] == 0 and comps[0] > 1
 
 
-def test_reversed_chain_is_one_component_where_jax_caps_its_sweeps():
-    """One chain 0.9 apart, node 0 at one end and the others numbered down
-    from the far end: the component minimum moves one hop per sweep. The
-    port is exact; the JAX package's CPU path stops after 32 iterations
-    (its TPU path after 12 fixed sweeps) and splits the chain."""
-    xy, batch, valid = ccl_problem_arrays("reversed_chain", 1, 64)
-    ref = _union_find_roots(xy[0], batch[0], valid[0])
-    assert (ref == 0).all()
-    eq(ccl.ccl_roots(t(xy), t(batch), t(valid))[0], ref)
-    assert ccl.ccl_roots_plain.sweeps > 33
-    eq(ccl.connected_components_bev_batched(t(xy), t(batch), t(valid)), np.zeros((1, 64)))
-    jax_labels = j_ccl_batched(jnp.asarray(xy), jnp.asarray(batch), jnp.asarray(valid))
-    assert len(np.unique(np.asarray(jax_labels))) > 1
-
-
 # --- K3: NMS ---------------------------------------------------------------
 
 
@@ -235,54 +201,6 @@ def test_nms_keep_plain_matches_pallas_interpret_64():
     eq(got, nms_scan_pallas(jnp.asarray(iou), jnp.asarray(valid), 0.6, interpret=True))
 
 
-def test_multiclass_nms_bev_batched_matches_jax():
-    rng = np.random.default_rng(4)
-    n, c = 120, 4
-    boxes = _boxes(rng, n)
-    scores = rng.random((n, c)).astype(np.float32)
-    scores[:10] = 0.5                           # cross-class and cross-box ties
-    valid = rng.random(n) > 0.1
-    batch = rng.integers(0, 2, n).astype(np.int32)
-    got = nms.multiclass_nms_bev_batched(t(boxes), t(scores), t(valid), t(batch), 2,
-                                         0.2, 0.45, 150)
-    ref = j_multiclass_nms(jnp.asarray(boxes), jnp.asarray(scores), jnp.asarray(valid),
-                           jnp.asarray(batch), 2, 0.2, 0.45, 150)
-    eq(got.valid, ref.valid), eq(got.labels, ref.labels)
-    close(got.boxes, ref.boxes), close(got.scores, ref.scores)
-    assert 0 < int(got.valid.sum()) < 300     # below max_num: the NMS, not the cap, decides
-
-
-@pytest.mark.parametrize("ties", [False, True])
-def test_nms_bev_mask_matches_jax(ties):
-    rng = np.random.default_rng(8)
-    boxes = _boxes(rng, 90, extent=4.0)
-    scores = rng.random(90).astype(np.float32)
-    if ties:
-        scores = np.round(scores * 3) / 3
-    valid = rng.random(90) > 0.15
-    got = nms.nms_bev_mask(t(boxes), t(scores), t(valid), 0.1)
-    eq(got, j_nms_bev_mask(jnp.asarray(boxes), jnp.asarray(scores), jnp.asarray(valid), 0.1))
-    assert 0 < int(got.sum()) < int(valid.sum())  # some suppressed
-
-
-@pytest.mark.parametrize("max_num", [40, 500])
-def test_multiclass_nms_bev_one_sample_matches_jax(max_num):
-    """One sample, 26 classes (AV2's count); ``max_num`` 40 cuts, 500 pads."""
-    rng = np.random.default_rng(9)
-    n, c = 100, 26
-    boxes = _boxes(rng, n, extent=5.0)
-    scores = rng.random((n, c)).astype(np.float32)
-    scores[:8] = 0.75                           # cross-class and cross-box ties
-    valid = rng.random(n) > 0.1
-    got = nms.multiclass_nms_bev(t(boxes), t(scores), t(valid), 0.2, 0.6, max_num)
-    ref = j_multiclass_nms_one(jnp.asarray(boxes), jnp.asarray(scores), jnp.asarray(valid),
-                               0.2, 0.6, max_num)
-    assert got.valid.shape == (max_num,)
-    eq(got.valid, ref.valid), eq(got.labels, ref.labels)
-    close(got.boxes, ref.boxes), close(got.scores, ref.scores)
-    assert 0 < int(got.valid.sum()) <= max_num
-
-
 @pytest.mark.parametrize("code_size", [8, 10])
 def test_abs_point_coder_matches_jax(code_size):
     rng = np.random.default_rng(code_size)
@@ -302,46 +220,6 @@ def test_abs_point_coder_matches_jax(code_size):
 # --- geometry and projection -----------------------------------------------
 
 
-def test_box_geometry_matches_jax():
-    rng = np.random.default_rng(5)
-    boxes = _boxes(rng, 50)
-    pts = rng.uniform(-7, 7, (400, 3)).astype(np.float32)
-    tb, jb = t(boxes), jnp.asarray(boxes)
-    close(geometry.gravity_center(tb), jgeo.gravity_center(jb))
-    close(geometry.enlarge_boxes(tb, (1.0, 1.0, 1.0), 0.5),
-          jgeo.enlarge_boxes(jb, (1.0, 1.0, 1.0), 0.5))
-    close(geometry.rotate_points_z(t(pts), t(pts[:, 0])),
-          jgeo.rotate_points_z(jnp.asarray(pts), jnp.asarray(pts[:, 0])))
-    close(geometry.box_corners_bev(tb), jgeo.box_corners_bev(jb))
-    inside = geometry.points_in_boxes(t(pts), tb)
-    eq(inside, jgeo.points_in_boxes(jnp.asarray(pts), jb))
-    assert inside.any()
-    iou = geometry.boxes_iou_bev(tb, tb[:20])
-    close(iou, jgeo.boxes_iou_bev(jb, jb[:20]))
-    assert (iou > 0).sum() > 20
-
-
-def test_projection_and_compact_mask_lookup_match_jax():
-    from fixtures import make_camera_data, make_scene
-
-    pb, gt = make_scene(seed=0)
-    cam = make_camera_data(pb, gt)
-    xyz = np.asarray(pb.points[:, :3])
-    batch = np.asarray(pb.batch_idx)
-    uv, ok = projection.project_points_2d(t(xyz), t(np.asarray(cam.lidar2img[0])),
-                                          cam.img_h, cam.img_w)
-    ruv, rok = j_project(jnp.asarray(xyz), cam.lidar2img[0], cam.img_h, cam.img_w)
-    eq(ok, rok)
-    close(uv, ruv)
-    ids, scores = projection.points_in_mask_compact(
-        t(xyz), t(batch), t(np.asarray(cam.lidar2img)),
-        t(np.asarray(cam.masks).astype(np.int32)), cam.img_h, cam.img_w)
-    rids, rscores = j_pim(jnp.asarray(xyz), jnp.asarray(batch), cam.lidar2img, cam.masks,
-                          cam.img_h, cam.img_w)
-    eq(ids, rids), eq(scores, rscores)
-    assert (ids > 0).any()
-
-
 def _fsf_mask_inputs():
     """``tests/test_fsf.py::test_points_in_mask_compact_matches_full``'s
     inputs: the tiny config's seed-3 scene and its camera masks."""
@@ -354,26 +232,3 @@ def _fsf_mask_inputs():
     masks5 = np.asarray(cam.masks).reshape(cam.lidar2img.shape[0], cam.num_cams, cam.img_h,
                                            cam.img_w, cam.num_cls)
     return pb, cam, masks5
-
-
-def test_full_mask_lookup_matches_jax_and_compact():
-    from fullysparsefusion_tpu.ops.projection import points_in_mask as j_points_in_mask
-
-    pb, cam, masks5 = _fsf_mask_inputs()
-    xyz, batch = np.asarray(pb.xyz), np.asarray(pb.batch_idx)
-    l2i = np.asarray(cam.lidar2img)
-    ids, scores = projection.points_in_mask(t(xyz), t(batch), t(l2i), t(masks5.astype(np.int32)))
-    rids, rscores = j_points_in_mask(jnp.asarray(xyz), jnp.asarray(batch), cam.lidar2img,
-                                     jnp.asarray(masks5))
-    eq(ids, rids), eq(scores, rscores)
-    assert ids.shape == (xyz.shape[0], cam.num_cams, cam.num_cls) and (ids > 0).any()
-    # a point of this rig projects into at most two cameras, so the two
-    # lowest-index cameras it projects into carry every hit: per point and
-    # class, the (id, score) entries over the cameras equal the compact's
-    cids, cscores = projection.points_in_mask_compact(
-        t(xyz), t(batch), t(l2i), t(np.asarray(cam.masks).astype(np.int32)), cam.img_h,
-        cam.img_w)
-    full = (ids.double() * 256 + torch.round(scores.double() * 255)).sort(1, descending=True)
-    comp = (cids.double() * 256 + torch.round(cscores.double() * 255)).sort(1, descending=True)
-    eq(full.values[:, 2:], torch.zeros_like(full.values[:, 2:]))
-    eq(full.values[:, :2], comp.values)

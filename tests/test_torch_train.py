@@ -25,35 +25,35 @@ Tolerances (measured worst case in brackets):
 * one sparse conv's gradients: 1e-5 of the magnitude for f32 results (bf16
   products, f32 sums in another order), 4e-3 (one bf16 ulp) for bf16 ones;
 * the optimizer fed the same gradients: ``OPT_TOL`` 1e-6 on the parameters.
+
+``test_torch_train_parity.py`` and ``test_torch_train_optim.py`` hold more
+tests of this module's helpers and fixtures, at its tolerances, in files of
+at most five tests, so that xdist's ``--dist loadfile`` (files with more
+tests first) queues them behind ``tests/test_train.py``, the Tier-1 run's
+longest file.
 """
 import dataclasses
 
 import jax
 import jax.numpy as jnp
 import numpy as np
-import optax
 import pytest
 import torch
 
 from fixtures import make_camera_data, make_scene, with_noaug_channels
 from fullysparsefusion_tpu.config import tiny_fsf_config as j_tiny_fsf_config
-from fullysparsefusion_tpu.core.assigners import hybrid_assign as j_hybrid_assign
 from fullysparsefusion_tpu.models.fsf import FSF as JFSF
-from fullysparsefusion_tpu.models.layers import MaskedBatchNorm as JMaskedBatchNorm
 from fullysparsefusion_tpu.ops import sparse_conv as jsc
 from fullysparsefusion_tpu.parallel import train as jtrain
 from fullysparsefusion_tpu.train.hooks import RuntimeSchedule as JRuntimeSchedule
 from fullysparsefusion_tpu_torch import synthetic as S
 from fullysparsefusion_tpu_torch.config import tiny_fsf_config
-from fullysparsefusion_tpu_torch.core.assigners import hybrid_assign
-from fullysparsefusion_tpu_torch.models.layers import MaskedBatchNorm
 from fullysparsefusion_tpu_torch.models.sparse_unet import SubmRulebook
 from fullysparsefusion_tpu_torch.ops import sparse_conv as tsc
 from fullysparsefusion_tpu_torch.parallel import train as ttrain
 from fullysparsefusion_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint
 from fullysparsefusion_tpu_torch.train.hooks import RuntimeSchedule
-from fullysparsefusion_tpu_torch.utils.containers import PointBatch
-from fullysparsefusion_tpu_torch.weights import build_fsf, from_jax_variables
+from fullysparsefusion_tpu_torch.weights import build_fsf
 from test_torch_fsf import FAST_COMPILE, _numpy_variables
 from test_torch_sparse_conv import _active_set, _strided
 from test_torch_ddp_port import torch_one_thread  # noqa: F401 (autouse)
@@ -130,88 +130,6 @@ def parity():
                 jcam=cam, jpb=pb, model=m, out=out, loss=loss, tgt=tgt, tcam=tcam, tpb=tpb)
 
 
-def test_loss_dict_matches_jax(parity):
-    jl, tl = parity["jout"]["losses"], parity["out"]["losses"]
-    assert set(jl) == set(tl)
-    assert any(k.startswith(p) for k in tl for p in ("frustum_", "fsd_", "stage0_"))
-    for k in jl:
-        if "num_pos" in k or "recall" in k:
-            assert float(tl[k]) == float(jl[k]), k
-        else:
-            _close(tl[k], jl[k], LOSS_TOL)
-    _close(parity["loss"], parity["jloss"], LOSS_TOL)
-    assert float(tl["fsd_num_pos"]) > 0 and float(tl["stage0_num_pos"]) > 0
-
-
-def test_train_forward_integer_outputs_and_assignments_match_jax(parity):
-    jo, to = parity["jout"], parity["out"]
-    for name, a, b in (
-            ("seg valid", jo["seg_out"]["valid"], to["seg_out"]["valid"]),
-            ("obj_valid", jo["frustum"]["obj_valid"], to["frustum"]["obj_valid"]),
-            ("cluster_valid", jo["fsd"]["cluster_valid"], to["fsd"]["cluster_valid"]),
-            ("num_fg_points", jo["fsd"]["num_fg_points"], to["fsd"]["num_fg_points"]),
-            ("q_batch", jo["final"]["q_batch"], to["final"]["q_batch"])):
-        np.testing.assert_array_equal(b.numpy(), np.asarray(a), err_msg=name)
-    # the refinement stage's hybrid assignment, each side on its own outputs
-    st_j, st_t = jo["stages"][0], to["stages"][0]
-    fr_j, fr_t = jo["frustum"], to["frustum"]
-    c = parity["model"].cfg
-    pad = np.zeros((c.caps.clusters, 9), np.float32)
-    ja = j_hybrid_assign(
-        jnp.asarray(st_j["centers"]), jnp.asarray(jo["final"]["q_batch"]),
-        jnp.asarray(jo["final"]["q_valid"]),
-        jnp.concatenate([jnp.asarray(fr_j["preds_2d"]), pad]), parity["jgt"], parity["jgt"],
-        parity["jcam"].lidar2img, parity["jcam"].img_w, parity["jcam"].img_h,
-        query_logits=jnp.asarray(st_j["cls_logits"]), max_dist_per_class=c.refine_max_dist)
-    ta = hybrid_assign(
-        st_t["centers"].detach(), to["final"]["q_batch"], to["final"]["q_valid"],
-        torch.cat([fr_t["preds_2d"], torch.from_numpy(pad)]), parity["tgt"], parity["tgt"],
-        parity["tcam"].lidar2img, parity["tcam"].img_w, parity["tcam"].img_h,
-        query_logits=st_t["cls_logits"].detach(), max_dist_per_class=c.refine_max_dist)
-    np.testing.assert_array_equal(ta.numpy(), np.asarray(ja))
-    assert (ta >= 0).sum() >= 2
-
-
-def test_losses_on_the_jax_forward_outputs_match_jax(parity):
-    """The port's loss functions fed the JAX forward's own outputs: no bf16
-    chain between them, so f32 within F32_TOL."""
-    jo = parity["jout"]
-    tt = jax.tree_util.tree_map(lambda a: torch.from_numpy(np.array(a)), jo)
-    tt["frustum"]["out"] = {k: v[0] for k, v in tt["frustum"]["out"].items()}
-    jpb = parity["jpb"]
-    pb_inner = PointBatch(points=_t(jpb.points[:, :-3]), batch_idx=_t(jpb.batch_idx),
-                          valid=_t(jpb.valid))
-    got = parity["model"]._losses(pb_inner, parity["tcam"], parity["tgt"], parity["tgt"], tt)
-    assert set(got) == set(jo["losses"])
-    for k, v in jo["losses"].items():
-        _close(got[k], v, F32_TOL)
-
-
-def test_updated_batch_stats_match_jax(parity):
-    ref = from_jax_variables({"batch_stats": parity["jstats"]})
-    sd = parity["model"].state_dict()
-    assert len(ref) > 20
-    for k, v in ref.items():
-        _close(sd[k], v, STATS_TOL)
-    # the statistics moved: the train form updated them
-    old = from_jax_variables({"batch_stats": parity["jvars"]["batch_stats"]})
-    assert any(not torch.equal(sd[k], old[k]) for k in ref)
-
-
-def test_gradient_tree_matches_jax(parity):
-    ref = from_jax_variables({"params": parity["jgrads"]})
-    params = dict(parity["model"].named_parameters())
-    assert set(ref) == set(params)
-    num = den = 0.0
-    for k, g in ref.items():
-        got = params[k].grad
-        assert got is not None and got.shape == g.shape, k
-        d, n = float((got - g).norm()), float(g.norm())
-        assert d <= LEAF_TOL * n + 1e-6, (k, d / max(n, 1e-12))
-        num, den = num + d * d, den + n * n
-    assert (num / den) ** 0.5 <= TOTAL_TOL
-
-
 def test_all_branches_receive_gradient():
     """The port's version of the JAX package's test of the same name, with
     the tiny config as it is (its deep stage on the dense path)."""
@@ -237,54 +155,6 @@ def test_all_branches_receive_gradient():
 # ---------------------------------------------------------------------------
 # train-form BN
 # ---------------------------------------------------------------------------
-
-
-@pytest.mark.parametrize("case", ["masked", "no_mask", "all_invalid", "bf16"])
-def test_masked_batchnorm_train_form_matches_jax(case):
-    rng = np.random.default_rng(1)
-    n, c = 300, 24
-    x = (rng.normal(2.0, 3.0, (n, c))).astype(np.float32)
-    valid = rng.random(n) > 0.3
-    if case == "all_invalid":
-        valid[:] = False
-    if case == "bf16":
-        x = x.astype(jnp.bfloat16).astype(np.float32)
-    scale = (1 + 0.1 * rng.normal(size=c)).astype(np.float32)
-    bias = (0.1 * rng.normal(size=c)).astype(np.float32)
-    stats = dict(mean=rng.normal(size=c).astype(np.float32),
-                 var=rng.uniform(0.5, 1.5, c).astype(np.float32))
-    cot = rng.normal(size=(n, c)).astype(np.float32)
-    jv = None if case == "no_mask" else jnp.asarray(valid)
-    jx = jnp.asarray(x, jnp.bfloat16 if case == "bf16" else jnp.float32)
-    bn = JMaskedBatchNorm()
-
-    def f(params, xx):
-        return bn.apply({"params": params, "batch_stats": stats}, xx, jv, True,
-                        mutable=["batch_stats"])
-
-    y, upd = f(dict(scale=scale, bias=bias), jx)
-    _, vjp = jax.vjp(lambda p, xx: f(p, xx)[0], dict(scale=scale, bias=bias), jx)
-    dparams, dx = vjp(jnp.asarray(cot))
-
-    m = MaskedBatchNorm(c).train()
-    m.load_state_dict({k[1:]: v for k, v in from_jax_variables(
-        {"params": {"scale": scale, "bias": bias}, "batch_stats": stats}).items()})
-    tx = _t(x).to(torch.bfloat16 if case == "bf16" else torch.float32).requires_grad_(True)
-    ty = m(tx, None if case == "no_mask" else _t(valid))
-    ty.backward(_t(cot))
-    _close(ty, y, F32_TOL)
-    _close(m.running_mean, upd["batch_stats"]["mean"], F32_TOL)
-    _close(m.running_var, upd["batch_stats"]["var"], F32_TOL)
-    _close(m.weight.grad, dparams["scale"], F32_TOL)
-    _close(m.bias.grad, dparams["bias"], F32_TOL)
-    _close(tx.grad, dx, BF16_TOL if case == "bf16" else F32_TOL)
-    assert tx.grad.dtype == tx.dtype
-    # eval form: the running statistics
-    m.eval()
-    ye = bn.apply({"params": {"scale": scale, "bias": bias}, "batch_stats": stats}, jx, jv, False)
-    m.running_mean.copy_(_t(stats["mean"]))
-    m.running_var.copy_(_t(stats["var"]))
-    _close(m(tx.detach(), None), ye, F32_TOL)
 
 
 # ---------------------------------------------------------------------------
@@ -398,48 +268,6 @@ def test_backward_plans_counted_and_the_mirrored_plan_shared():
 # ---------------------------------------------------------------------------
 # optimizer, schedules, checkpoints
 # ---------------------------------------------------------------------------
-
-
-def test_optimizer_matches_optax_on_shared_gradients():
-    """clip(35) + AdamW + cyclic lr + the segmentor-core multiplier over 3
-    steps, both fed the same gradients: the first step is clipped (global
-    norm 100), the others not."""
-    rng = np.random.default_rng(7)
-    shapes = {"seg_core": {"a": (4, 3), "b": (5,)}, "head": {"c": (3, 3), "d": (2,)}}
-    params = {g: {n: rng.normal(size=s).astype(np.float32) for n, s in v.items()}
-              for g, v in shapes.items()}
-    grads = []
-    for norm in (100.0, 0.5, 20.0):
-        g = {gk: {n: rng.normal(size=s).astype(np.float32) for n, s in v.items()}
-             for gk, v in shapes.items()}
-        tot = np.sqrt(sum(float((x ** 2).sum()) for v in g.values() for x in v.values()))
-        grads.append(jax.tree_util.tree_map(lambda x: (x * norm / tot).astype(np.float32), g))
-    rules = {"seg_core": 0.2}
-    tx = jtrain.make_optimizer(base_lr=1e-3, total_steps=10, lr_mult_rules=rules)
-    jp = jax.tree_util.tree_map(jnp.asarray, params)
-    state = tx.init(jp)
-
-    module = torch.nn.Module()
-    for g, v in params.items():
-        setattr(module, g, torch.nn.ParameterDict({n: torch.nn.Parameter(_t(x))
-                                                   for n, x in v.items()}))
-    opt = ttrain.make_optimizer(module, base_lr=1e-3, total_steps=10, lr_mult_rules=rules)
-    assert sorted(g["lr_mult"] for g in opt.param_groups) == [0.2, 1.0]
-    for step, g in enumerate(grads):
-        updates, state = tx.update(jax.tree_util.tree_map(jnp.asarray, g), state, jp)
-        jp = optax.apply_updates(jp, updates)
-        for name, p in module.named_parameters():
-            gk, n = name.split(".")
-            p.grad = _t(g[gk][n])
-        gnorm = ttrain.optimizer_step(opt, step)
-        assert abs(float(gnorm) - (100.0, 0.5, 20.0)[step]) < 1e-3
-        for name, p in module.named_parameters():
-            gk, n = name.split(".")
-            np.testing.assert_allclose(p.detach().numpy(), np.asarray(jp[gk][n]), rtol=0,
-                                       atol=OPT_TOL, err_msg=f"{name} step {step}")
-    moved = [float((p.detach() - _t(params[n.split(".")[0]][n.split(".")[1]])).abs().max())
-             for n, p in module.named_parameters()]
-    assert min(moved) > 1e-4
 
 
 def test_cyclic_lr_schedule_and_runtime_schedule_match_jax():
