@@ -155,6 +155,21 @@ Phases, each of which ends the script with a non-zero exit on failure:
    entry point's launches per step); the seeded full HTC's ``.pth``
    converted and built strictly: one six-camera 900 x 1,600 sample's masks
    and anno table bitwise the seeded model's, K3 launched twice a camera.
+16. export: whole-model export through the kernels' ``torch.library`` ops
+   (``cli/export_model.py``). Full-width FSF at ``bench_config()`` and FSD
+   at its ``fsd`` (random weights from seed 0) each exported at batch 1 on
+   the card (``torch.export``, non-strict, eval-form BN) and saved as a
+   ``.pt2`` (MiB, export and save seconds, graph nodes and ``fsf::`` op
+   calls); each served by ``cli/serve_exported.py`` in a fresh process
+   that imports the op registration and no model module (load seconds,
+   the first call's ms, then the bench requests of seeds 0, 1, 2): every
+   output held to the eager model's at ``EXPORT_RTOL`` / ``EXPORT_ATOL``
+   (bitwise reported), each request's ``gpu_ms`` beside the eager one's,
+   the launches counted inside the ops equal to the eager forward's and the
+   main path's K1 and K2 (no K3: decode is not exported) and to the
+   kernels of a profiler trace of one call; then ``cli/export_model.py
+   --config`` (the reconstructed nuScenes file) ``--check`` as a
+   subprocess on the card.
 
 The last lines are a ``{"kernels": [...]}`` JSON object, the card's name and
 power limit from ``nvidia-smi``, and ``{"ok": true, "device": {...}}``.
@@ -3292,6 +3307,175 @@ def reference_interop_phase(wrappers, tree: dict, root: str, main_per_request: d
     return per_request
 
 
+# -- whole-model export ---------------------------------------------------------
+
+EXPORT_SEEDS = (0, 1, 2)
+# the exported program against the eager model: tests/test_export.py's bounds
+EXPORT_RTOL, EXPORT_ATOL = 1e-5, 1e-6
+REPO_ROOT = os.path.dirname(os.path.abspath(__file__))
+
+
+def serving_call(module, inputs, wrappers) -> tuple:
+    """(outputs on the CPU, gpu_ms by CUDA events, launches) of one call of
+    an exported signature's forward, the counters zeroed just before."""
+    torch.cuda.synchronize()
+    zero(wrappers)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    with torch.inference_mode():
+        start.record()
+        out = module(*inputs)
+        end.record()
+    torch.cuda.synchronize()
+    return [t.cpu() for t in out], start.elapsed_time(end), counts(wrappers)
+
+
+def serve_fresh(pt2: str, requests: list, workdir: str, what: str) -> tuple:
+    """``cli/serve_exported`` in a fresh process (it imports the op
+    registration and no model module) on ``requests``, one more call of the
+    first traced by the profiler: (each request's outputs, its report)."""
+    from fullysparsefusion_tpu_torch.cli.serve_exported import request_dict
+
+    paths = {n: os.path.join(workdir, f"{what}_{n}")
+             for n in ("requests.pt", "outputs.pt", "report.json", "trace")}
+    torch.save([{k: v.cpu() if torch.is_tensor(v) else v for k, v in request_dict(*r).items()}
+                for r in requests], paths["requests.pt"])
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "fullysparsefusion_tpu_torch.cli.serve_exported",
+         "--pt2", pt2, "--requests", paths["requests.pt"], "--out", paths["outputs.pt"],
+         "--report", paths["report.json"], "--trace-dir", paths["trace"]],
+        cwd=REPO_ROOT, capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        fail(f"serving the exported {what} in a fresh process: exit {proc.returncode}\n"
+             f"{proc.stderr[-4000:]}")
+    with open(paths["report.json"]) as f:
+        report = json.load(f)
+    report["process_seconds"] = time.perf_counter() - t0
+    return torch.load(paths["outputs.pt"], weights_only=True), report
+
+
+def graph_ops(program) -> dict:
+    """The ``fsf::`` op calls of an exported program's graph, by op."""
+    ops = {}
+    for node in program.graph.nodes:
+        if node.op == "call_function" and str(node.target).startswith("fsf."):
+            ops[str(node.target)] = ops.get(str(node.target), 0) + 1
+    return ops
+
+
+def export_model(what: str, model, requests: list, workdir: str, wrappers,
+                 main_per_request: dict) -> dict:
+    """Export ``model``'s serving forward at batch 1 on the card, save the
+    ``.pt2``, serve ``requests`` from it in a fresh process: each request's
+    outputs held to the eager model's at ``EXPORT_RTOL`` / ``EXPORT_ATOL``
+    (bitwise reported), its launches counted inside the ops equal to the
+    eager forward's and to the main path's K1 and K2 with no K3, and the
+    profiler trace's kernels equal to the counts. Returns the launches per
+    exported request."""
+    from fullysparsefusion_tpu_torch.cli import export_model as E
+
+    pt2 = os.path.join(workdir, f"{what}.pt2")
+    t0 = time.perf_counter()
+    program = E.export(model, requests[0], batch_size=1)
+    export_s = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    torch.export.save(program, pt2)
+    save_s = time.perf_counter() - t1
+    nodes, ops = len(program.graph.nodes), graph_ops(program)
+    del program
+    serving = E.serving_module(model, 1)
+    serving_call(serving, requests[0], wrappers)          # warm, as the served program is
+    eager = [serving_call(serving, r, wrappers) for r in requests]
+    outputs, report = serve_fresh(pt2, requests, workdir, what)
+    if report["model_modules"]:
+        fail(f"serving the exported {what} imported {report['model_modules'][:3]}")
+    want_launches = {"gather_conv": main_per_request["gather_conv"],
+                     "ccl_roots": main_per_request["ccl_roots"], "nms_keep": 0, "dw_per_tap": 0}
+    for seed, (want, eager_ms_, eager_launches), got, rec in zip(
+            EXPORT_SEEDS, eager, outputs, report["requests"]):
+        err, bitwise = 0.0, True
+        for i, (g, w) in enumerate(zip(got, want)):
+            if g.shape != w.shape or g.dtype != w.dtype:
+                fail(f"exported {what}, request seed {seed}: output {i} is {tuple(g.shape)} "
+                     f"{g.dtype}, eager {tuple(w.shape)} {w.dtype}")
+            if not torch.isfinite(g).all():
+                fail(f"exported {what}, request seed {seed}: output {i} not finite")
+            over = (g - w).abs() > EXPORT_ATOL + EXPORT_RTOL * w.abs()
+            if over.any():
+                fail(f"exported {what}, request seed {seed}: output {i} differs from eager at "
+                     f"{int(over.sum())} entries (max {float((g - w).abs().max()):.3g})")
+            err = max(err, float((g - w).abs().max()))
+            bitwise &= torch.equal(g, w)
+        launches = {k: rec["launches"][k] for k in want_launches}
+        if launches != {k: eager_launches[k] for k in want_launches} or launches != want_launches:
+            fail(f"exported {what}, request seed {seed}: launches {launches}, eager "
+                 f"{eager_launches}, expected {want_launches}")
+        log({"phase": "export_request", "model": what, "seed": seed,
+             "gpu_ms": round(rec["ms"], 3), "eager_gpu_ms": round(eager_ms_, 3),
+             "launches": launches, "max_abs_err": err, "bitwise": bitwise})
+    events = report["kernel_events"]
+    trace = {k: {n: sum(c for name, c in events.items() if n in name) for n in names}
+             for k, names in TRACE_KERNELS.items()}
+    for k, found in trace.items():
+        if any(c != want_launches[k] for c in found.values()):
+            fail(f"exported {what}: the profiler trace has {found} of {k}, the ops counted "
+                 f"{want_launches[k]}")
+    log({"phase": "export_model", "model": what, "pt2_mib": mib(pt2),
+         "export_seconds": round(export_s, 3), "save_seconds": round(save_s, 3),
+         "load_seconds": round(report["load_seconds"], 3),
+         "first_call_ms": round(report["first_call_ms"], 3),
+         "process_seconds": round(report["process_seconds"], 3), "graph_nodes": nodes,
+         "graph_ops": ops, "trace_kernels": trace, "requests": len(requests),
+         "launches_per_request": want_launches})
+    return want_launches
+
+
+def export_cli(workdir: str) -> None:
+    """``cli/export_model.py --config <the nuScenes file> --check`` as a
+    subprocess on the card: FSF at the file's capacities, batch 2, exported,
+    saved, loaded and held to the live model."""
+    out = os.path.join(workdir, "fsf_config.pt2")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "fullysparsefusion_tpu_torch.cli.export_model",
+         "--config", REF_CONFIG, "--out", out, "--check"],
+        cwd=REPO_ROOT, capture_output=True, text=True, timeout=900)
+    if proc.returncode != 0 or "artifact matches live model" not in proc.stdout:
+        fail(f"cli.export_model --config --check: exit {proc.returncode}\n"
+             f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+    log({"phase": "export_cli", "config": os.path.relpath(REF_CONFIG, REPO_ROOT),
+         "output": proc.stdout.strip().splitlines()[-2:], "pt2_mib": mib(out),
+         "seconds": round(time.perf_counter() - t0, 3)})
+
+
+def export_phase(wrappers, root: str, main_per_request: dict) -> dict:
+    """Whole-model export on the card: full-width FSF at ``bench_config()``
+    and FSD at its ``fsd``, each exported at batch 1, saved and served from
+    a fresh process on the bench requests of ``EXPORT_SEEDS``; then the
+    export CLI on the reference config file. Returns each model's launches
+    per exported request."""
+    from fullysparsefusion_tpu_torch.weights import build_fsd, build_fsf
+
+    t0 = time.perf_counter()
+    workdir = os.path.join(root, "export")
+    os.makedirs(workdir)
+    cfg = bench_config()
+    model = build_fsf(cfg, seed=0, device="cuda")
+    per_request = {"fsf": export_model("fsf", model, [bench_request(s, cfg) for s in EXPORT_SEEDS],
+                                       workdir, wrappers, main_per_request)}
+    del model
+    torch.cuda.empty_cache()
+    model = build_fsd(cfg.fsd, seed=0, device="cuda")
+    per_request["fsd"] = export_model("fsd", model, [(fsd_scene(s, cfg.fsd)[0],)
+                                                     for s in EXPORT_SEEDS],
+                                      workdir, wrappers, main_per_request)
+    del model
+    torch.cuda.empty_cache()
+    export_cli(workdir)
+    log({"phase": "export", "seconds": round(time.perf_counter() - t0, 3)})
+    return per_request
+
+
 KERNEL_INFO = {
     "gather_conv": ("fullysparsefusion_tpu_torch/csrc/gather_conv.cu",
                     "fullysparsefusion_tpu/ops/pallas_kernels.py:366"),
@@ -3374,6 +3558,7 @@ def main() -> int:
         interop = reference_interop_phase(
             wrappers, nusc["tree"], root,
             main_per_request=main_per_request, nusc_per_step=nusc["train_per_step"])
+        exported = export_phase(wrappers, root, main_per_request)
     entries = []
     for name, st in stats.items():
         source, replaces = KERNEL_INFO[name]
@@ -3428,7 +3613,9 @@ def main() -> int:
                                               "max_abs_err": bwd["err"]}
         entry.update(nusc_entry_launches_per_request=nusc["per_request"][name],
                      nusc_entry_train_launches_per_step=nusc["train_per_step"][name],
-                     interop_launches_per_request=interop[name])
+                     interop_launches_per_request=interop[name],
+                     export_launches_per_request=exported["fsf"][name],
+                     fsd_export_launches_per_request=exported["fsd"][name])
         if name == "nms_keep":
             entry["tta"] = nusc["tta"]
         entries.append(entry)

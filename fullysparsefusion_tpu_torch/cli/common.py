@@ -1,7 +1,7 @@
 """What the train and test entry points share: the device, the config from
 the flags, the model by name at the data's point width, the batches on the
 device, the offline masks, device timing and the kernels' launch
-counters."""
+counters (``ops/library.py``'s)."""
 from __future__ import annotations
 
 import dataclasses
@@ -14,7 +14,7 @@ import torch
 from ..config import FSFConfig, nusc_fsf_config, tiny_fsf_config
 from ..config_compat import load_fsf_config
 from ..data.masks import load_sample_masks, pack_mask_scores
-from ..ops import ccl, nms, sparse_conv
+from ..ops.library import kernel_launches, launches_since  # noqa: F401 (the CLIs')
 from ..utils.containers import GroundTruth, PointBatch
 from ..weights import build_fsd, build_fsf, build_two_stage_fsd
 
@@ -117,14 +117,3 @@ def timed(fn, device):
     t0 = time.perf_counter()
     out = fn()
     return out, (time.perf_counter() - t0) * 1e3
-
-
-def kernel_launches() -> Dict[str, int]:
-    """The kernels' launch counters (each wrapper counts its CUDA launches)."""
-    return {"gather_conv": sparse_conv.gather_conv.launches, "ccl_roots": ccl.ccl_roots.launches,
-            "nms_keep": nms.nms_keep.launches, "dw_per_tap": sparse_conv.dw_per_tap.launches}
-
-
-def launches_since(before: Dict[str, int]) -> Dict[str, int]:
-    now = kernel_launches()
-    return {k: now[k] - before[k] for k in now}

@@ -8,52 +8,18 @@ capacity and grouped by (batch, instance id).
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
 from typing import NamedTuple, Tuple
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from ..ops.projection import points_in_mask_compact
 from ..ops.segment import SegmentInfo, segment_sum, unique_segments
+from ..utils.containers import CameraData  # noqa: F401 (re-exported)
 from ..utils.gather import masked_gather
 from .layers import MLP
 from .sir import SIR
-
-
-@dataclass
-class CameraData:
-    """Pre-computed 2D instance data.
-
-    masks: [B·cams·H·W, cls] int32, packed ``id | score_u8 << 8`` (id = anno
-    row + 1, 0 = background), flat and channel-last; anno: [B, A, 9] f32
-    ([x1, y1, x2, y2, score, category, cam_id, obj_id, valid]); lidar2img:
-    [B, cams, 4, 4] f32; img_h/img_w: the mask planes' size (required).
-    """
-
-    masks: torch.Tensor
-    anno: torch.Tensor
-    lidar2img: torch.Tensor
-    img_h: int
-    img_w: int
-
-    @classmethod
-    def build(cls, masks_planes, anno, lidar2img, device="cuda") -> "CameraData":
-        """From [B, cams, H, W, cls] packed uint16 planes (NumPy)."""
-        planes = np.asarray(masks_planes)
-        b, cams, h, w, ncls = planes.shape
-        return cls(
-            masks=torch.as_tensor(planes.reshape(-1, ncls).astype(np.int32), device=device),
-            anno=torch.as_tensor(np.asarray(anno, np.float32), device=device),
-            lidar2img=torch.as_tensor(np.asarray(lidar2img, np.float32), device=device),
-            img_h=int(h), img_w=int(w),
-        )
-
-    @property
-    def max_anno(self) -> int:
-        return self.anno.shape[1]
 
 
 class FrustumSelection(NamedTuple):

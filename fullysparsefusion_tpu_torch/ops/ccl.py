@@ -3,16 +3,16 @@
 Two nodes connect iff both are valid, share a batch id and their xy
 distance is below the threshold. Labels are compact and ordered by each
 component's minimum node index. :func:`ccl_roots` is the K2 kernel's
-wrapper: CUDA tensors launch ``csrc/ccl.cu`` (adjacency bits, then a
-union-find per problem), CPU tensors run :func:`ccl_roots_plain`; the
-compact relabelling stays in torch. Both are exact for any component
-diameter.
+wrapper, through the op ``fsf::ccl_roots`` (``ops/library.py``): CUDA
+tensors launch ``csrc/ccl.cu`` (adjacency bits, then a union-find per
+problem), CPU tensors run :func:`ccl_roots_plain`; the compact relabelling
+stays in torch. Both are exact for any component diameter.
 """
 from __future__ import annotations
 
 import torch
 
-from .. import kernels
+from . import library  # noqa: F401 (registers the fsf ops)
 
 
 def ccl_roots_plain(xy: torch.Tensor, batch: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
@@ -59,27 +59,13 @@ def ccl_roots(xy: torch.Tensor, batch: torch.Tensor, valid: torch.Tensor) -> tor
     if xy.dim() != 3 or xy.shape[2] != 2 or batch.shape != xy.shape[:2] \
             or valid.shape != xy.shape[:2]:
         raise ValueError("ccl_roots: xy [G, N, 2], batch and valid [G, N]")
-    if xy.device.type == "cpu":
-        return ccl_roots_plain(xy, batch, valid)
-    if xy.device.type != "cuda" or batch.device != xy.device or valid.device != xy.device:
+    if xy.device.type not in ("cpu", "cuda") or batch.device != xy.device \
+            or valid.device != xy.device:
         raise ValueError("ccl_roots: all tensors on one CUDA device (or the CPU)")
-    g, n = valid.shape
-    if not (xy.is_contiguous() and batch.is_contiguous() and valid.is_contiguous()):
-        raise ValueError("ccl_roots: inputs must be contiguous")
-    # scratch of the adjacency pass: bits[g, i, w], bit b set iff 32 w + b > i
-    # is adjacent to i
-    bits = torch.empty(g, n, (n + 31) // 32, dtype=torch.int32, device=xy.device)
-    # union-find's parent[] where it does not fit in shared memory; apart from
-    # roots, so that only a node's own thread writes its root
-    parent = torch.empty(g, n, dtype=torch.int32, device=xy.device)
-    roots = torch.empty(g, n, dtype=torch.int32, device=xy.device)
-    kernels.launch("ccl", xy.data_ptr(), batch.data_ptr(), valid.data_ptr(), g, n,
-                   bits.data_ptr(), parent.data_ptr(), roots.data_ptr(),
-                   torch.cuda.current_stream(xy.device).cuda_stream)
-    ccl_roots.launches += 1
-    return roots
+    return torch.ops.fsf.ccl_roots(xy, batch, valid)
 
 
+# counted by the op's CUDA implementation (ops/library.py), one per launch
 ccl_roots.launches = 0
 
 

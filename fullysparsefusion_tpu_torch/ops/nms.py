@@ -1,6 +1,7 @@
 """Rotated multiclass NMS with fixed shapes (port of ``ops/nms.py``).
 
-:func:`nms_keep` is the K3 kernel's wrapper: CUDA tensors launch
+:func:`nms_keep` is the K3 kernel's wrapper, through the op ``fsf::nms_keep``
+(``ops/library.py``): CUDA tensors launch
 ``csrc/nms.cu`` (a bitmask pass over every class and row, then one warp per
 class scanning the bits, back to back); CPU tensors run :func:`nms_keep_plain`.
 """
@@ -10,7 +11,7 @@ from typing import NamedTuple
 
 import torch
 
-from .. import kernels
+from . import library  # noqa: F401 (registers the fsf ops)
 from .geometry import boxes_iou_bev
 
 
@@ -47,24 +48,13 @@ def nms_keep(iou: torch.Tensor, order: torch.Tensor, valid_sorted: torch.Tensor,
     if iou.shape != (n, n) or order.dim() != 2 or order.shape[1] != n \
             or valid_sorted.shape != order.shape:
         raise ValueError("nms_keep: iou [N, N], order and valid_sorted [C, N]")
-    if iou.device.type == "cpu":
-        return nms_keep_plain(iou, order, valid_sorted, iou_thr)
-    if iou.device.type != "cuda" or order.device != iou.device or valid_sorted.device != iou.device:
+    if iou.device.type not in ("cpu", "cuda") or order.device != iou.device \
+            or valid_sorted.device != iou.device:
         raise ValueError("nms_keep: all tensors on one CUDA device (or the CPU)")
-    if not (iou.is_contiguous() and order.is_contiguous() and valid_sorted.is_contiguous()):
-        raise ValueError("nms_keep: inputs must be contiguous")
-    c = order.shape[0]
-    words = (n + 63) // 64
-    # scratch of the bitmask pass: mask[c, i, w], 64 later rows per word
-    mask = torch.empty(c, 64 * words, words, dtype=torch.int64, device=iou.device)
-    keep = torch.empty(c, n, dtype=torch.bool, device=iou.device)
-    kernels.launch("nms", iou.data_ptr(), order.data_ptr(), valid_sorted.data_ptr(), c, n,
-                   float(iou_thr), mask.data_ptr(), keep.data_ptr(),
-                   torch.cuda.current_stream(iou.device).cuda_stream)
-    nms_keep.launches += 1
-    return keep
+    return torch.ops.fsf.nms_keep(iou, order, valid_sorted, float(iou_thr))
 
 
+# counted by the op's CUDA implementation (ops/library.py), one per launch
 nms_keep.launches = 0
 
 

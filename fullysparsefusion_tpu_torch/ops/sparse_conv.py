@@ -9,7 +9,8 @@ int32 with a miss pointing at ``n_src`` (the zero row). Any exact lookup
 gives the JAX package's rows, because active sets hold unique coordinates;
 here it is one ``searchsorted`` over the sorted active keys.
 
-:func:`gather_conv` is the K1 kernel's wrapper: CUDA tensors launch
+:func:`gather_conv` is the K1 kernel's wrapper, through the op
+``fsf::gather_conv`` (``ops/library.py``): CUDA tensors launch
 ``csrc/gather_conv.cu``, CPU tensors run :func:`gather_conv_plain`. The kernel
 takes a rulebook's :class:`ConvPlan` (each output row's hit mask and the rows
 sorted by it), made once per rulebook by :func:`plan_rulebook` and shared by
@@ -33,7 +34,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .. import kernels
+from . import library  # noqa: F401 (registers the fsf ops)
 from .segment import INVALID_KEY, unique_keys_sorted
 from .voxelize import linearize_coords
 
@@ -88,8 +89,10 @@ class ConvPlan(NamedTuple):
     order: torch.Tensor  # [n_out] i32: rows stably sorted by mask
 
 
-# [K³, 1] i32 column of 1 << k per (K³, device), made once
-_TAP_BITS = {}
+def _check_plan(what: str, plan: ConvPlan, n_out: int, device) -> None:
+    for t in plan:
+        if t.dtype != torch.int32 or t.shape != (n_out,) or t.device != device:
+            raise ValueError(f"{what}: plan masks and order must be int32 [n_out] on the device")
 
 
 def plan_rulebook(rows: torch.Tensor, n_src: int) -> ConvPlan:
@@ -97,16 +100,15 @@ def plan_rulebook(rows: torch.Tensor, n_src: int) -> ConvPlan:
     (miss → ``n_src``). Sorting by mask puts rows that hit the same taps in
     the same tile of ``TILE_ROWS``, so a tile skips every tap none of its
     rows hits; rows with no hit (capacity padding) sort first, into tiles
-    that do no tap at all. Torch glue, made once per rulebook."""
+    that do no tap at all. Torch glue, made once per rulebook; it keeps no
+    tensor between calls, so a trace (``torch.export``) leaves nothing
+    behind for a later call."""
     k3 = rows.shape[0]
     if k3 > 31:
         raise ValueError(f"plan_rulebook: at most 31 taps fit an int32 mask, got {k3}")
     plan_rulebook.calls += 1
-    key = (k3, rows.device)
-    if key not in _TAP_BITS:
-        _TAP_BITS[key] = torch.tensor([[1 << k] for k in range(k3)], dtype=torch.int32,
-                                      device=rows.device)
-    masks = torch.where(rows < n_src, _TAP_BITS[key], 0).sum(0, dtype=torch.int32)
+    taps = torch.arange(k3, dtype=torch.int32, device=rows.device)[:, None]
+    masks = torch.where(rows < n_src, 1 << taps, 0).sum(0, dtype=torch.int32)
     order = torch.sort(masks, stable=True).indices.to(torch.int32)
     return ConvPlan(masks=masks, order=order)
 
@@ -120,9 +122,10 @@ def gather_conv(feats: torch.Tensor, rows: torch.Tensor, w: torch.Tensor,
 
     feats [n_src, Cin] bf16, rows [K³, n_out] i32 (miss → n_src), w [K³,
     Cin, Cout] bf16; ``plan`` is ``plan_rulebook(rows, n_src)``, made here
-    when not given. On a CUDA tensor this launches the gather-conv kernel
-    (Cin and Cout multiples of 8, contiguous inputs); on a CPU tensor it
-    runs :func:`gather_conv_plain`. The caller masks by out-validity.
+    when not given. The op ``fsf::gather_conv``: on a CUDA tensor it
+    launches the gather-conv kernel (Cin and Cout multiples of 8, contiguous
+    inputs, feats and w 16-byte aligned); on a CPU tensor it runs
+    :func:`gather_conv_plain`. The caller masks by out-validity.
     """
     if feats.dtype != torch.bfloat16 or w.dtype != torch.bfloat16:
         raise TypeError("gather_conv takes bf16 feats and w")
@@ -135,31 +138,18 @@ def gather_conv(feats: torch.Tensor, rows: torch.Tensor, w: torch.Tensor,
     if w.shape[0] != k3 or w.shape[1] != cin:
         raise ValueError(f"gather_conv: w {tuple(w.shape)} does not match rows/feats")
     cout = w.shape[2]
-    if feats.device.type == "cpu":
-        return gather_conv_plain(feats, rows, w)
-    if feats.device.type != "cuda" or rows.device != feats.device or w.device != feats.device:
+    if feats.device.type not in ("cpu", "cuda") or rows.device != feats.device \
+            or w.device != feats.device:
         raise ValueError("gather_conv: all tensors on one CUDA device (or the CPU)")
-    if cin % 8 or cout % 8:
+    if feats.device.type == "cuda" and (cin % 8 or cout % 8):
         raise ValueError(f"gather_conv kernel needs Cin, Cout % 8 == 0, got {cin}, {cout}")
-    if not (feats.is_contiguous() and rows.is_contiguous() and w.is_contiguous()):
-        raise ValueError("gather_conv: inputs must be contiguous")
-    if feats.data_ptr() % 16 or w.data_ptr() % 16:
-        raise ValueError("gather_conv: feats and w must be 16-byte aligned")
     if plan is None:
         plan = plan_rulebook(rows, n_src)
-    for t in plan:
-        if t.dtype != torch.int32 or t.shape != (n_out,) or t.device != feats.device \
-                or not t.is_contiguous():
-            raise ValueError("gather_conv: plan masks and order must be int32 [n_out] on the device")
-    out = torch.empty(n_out, cout, dtype=torch.float32, device=feats.device)
-    kernels.launch(
-        "gather_conv", feats.data_ptr(), n_src, cin, rows.data_ptr(), n_out, k3,
-        w.data_ptr(), cout, plan.order.data_ptr(), plan.masks.data_ptr(), out.data_ptr(),
-        torch.cuda.current_stream(feats.device).cuda_stream)
-    gather_conv.launches += 1
-    return out
+    _check_plan("gather_conv", plan, n_out, feats.device)
+    return torch.ops.fsf.gather_conv(feats, rows, w, plan.order, plan.masks)
 
 
+# counted by the op's CUDA implementation (ops/library.py), one per launch
 gather_conv.launches = 0
 
 
@@ -205,29 +195,30 @@ class DwWork(NamedTuple):
     buf: torch.Tensor         # the int32 buffer that the fields above view, in that order
 
 
-def dw_work_list(plan: ConvPlan, k3: int, n_chunks: int) -> DwWork:
-    """For each tap, the tiles of ``TILE_ROWS`` rows of ``plan.order`` in
-    which some row hits it (by the OR of the tile's masks), cut into chunks
-    of ``per`` tiles (a tap's last chunk shorter), ``per`` the least length
-    that keeps the chunks within ``n_chunks`` (≥ K³) slots. On a CUDA plan
-    this launches the dw kernel's list kernels; on a CPU plan it is torch
-    glue, their plain version. Nothing is read back to the host."""
-    dev = plan.order.device
-    n_out = plan.order.shape[0]
+def dw_work_size(n_out: int, k3: int, n_chunks: int) -> int:
+    """Length of the int32 buffer of :class:`DwWork`."""
     n_tiles = -(-n_out // TILE_ROWS)
-    if not 1 <= k3 <= 31 or n_chunks < k3:
-        raise ValueError(f"dw_work_list: 1 <= K3 <= 31 and n_chunks >= K3, got {k3}, {n_chunks}")
-    sizes = (n_tiles, k3, k3 * n_tiles, 3 * n_chunks, 2 * k3)
-    buf = torch.empty(sum(sizes), dtype=torch.int32, device=dev)
-    t_mask, t_tiles, t_list, t_chunks, t_tap_chunks = torch.split(buf, sizes)
-    work = DwWork(t_mask, t_tiles, t_list, t_chunks.view(n_chunks, 3), t_tap_chunks.view(k3, 2),
+    return n_tiles + k3 + k3 * n_tiles + 3 * n_chunks + 2 * k3
+
+
+def _dw_views(buf: torch.Tensor, n_out: int, k3: int, n_chunks: int) -> DwWork:
+    n_tiles = -(-n_out // TILE_ROWS)
+    t_mask, t_tiles, t_list, t_chunks, t_tap_chunks = torch.split(
+        buf, (n_tiles, k3, k3 * n_tiles, 3 * n_chunks, 2 * k3))
+    return DwWork(t_mask, t_tiles, t_list, t_chunks.view(n_chunks, 3), t_tap_chunks.view(k3, 2),
                   buf)
-    if dev.type == "cuda":
-        kernels.launch("gather_conv_dw_list", plan.masks.data_ptr(), plan.order.data_ptr(),
-                       n_out, k3, n_chunks, buf.data_ptr(),
-                       torch.cuda.current_stream(dev).cuda_stream)
-        return work
-    m = F.pad(plan.masks[plan.order.long()], (0, n_tiles * TILE_ROWS - n_out))
+
+
+def dw_work_list_plain(masks: torch.Tensor, order: torch.Tensor, k3: int,
+                       n_chunks: int) -> torch.Tensor:
+    """Plain version of the work-list kernels: :func:`dw_work_list`'s buffer
+    from a plan's ``masks`` and ``order``, in torch glue."""
+    dev = order.device
+    n_out = order.shape[0]
+    n_tiles = -(-n_out // TILE_ROWS)
+    work = _dw_views(torch.empty(dw_work_size(n_out, k3, n_chunks), dtype=torch.int32,
+                                 device=dev), n_out, k3, n_chunks)
+    m = F.pad(masks[order.long()], (0, n_tiles * TILE_ROWS - n_out))
     m = m.view(n_tiles, TILE_ROWS)
     while m.shape[1] > 1:                           # OR over each tile, by halves
         h = m.shape[1] // 2
@@ -256,7 +247,25 @@ def dw_work_list(plan: ConvPlan, k3: int, n_chunks: int) -> DwWork:
                         torch.minimum(per, cnt[tap] - c * per)], 1)
     work.chunks.copy_(torch.where((j < ends[-1])[:, None], rows, 0))
     work.tap_chunks.copy_(torch.stack([first, n_ck], 1))
-    return work
+    return work.buf
+
+
+def dw_work_list(plan: ConvPlan, k3: int, n_chunks: int) -> DwWork:
+    """For each tap, the tiles of ``TILE_ROWS`` rows of ``plan.order`` in
+    which some row hits it (by the OR of the tile's masks), cut into chunks
+    of ``per`` tiles (a tap's last chunk shorter), ``per`` the least length
+    that keeps the chunks within ``n_chunks`` (≥ K³) slots. The op
+    ``fsf::dw_work_list``: on a CUDA plan it launches the dw kernel's list
+    kernels, on a CPU plan it runs :func:`dw_work_list_plain`. Nothing is
+    read back to the host."""
+    n_out = plan.order.shape[0]
+    if not 1 <= k3 <= 31 or n_chunks < k3:
+        raise ValueError(f"dw_work_list: 1 <= K3 <= 31 and n_chunks >= K3, got {k3}, {n_chunks}")
+    if plan.order.device.type not in ("cpu", "cuda"):
+        raise ValueError("dw_work_list: a plan on a CUDA device (or the CPU)")
+    _check_plan("dw_work_list", plan, n_out, plan.order.device)
+    buf = torch.ops.fsf.dw_work_list(plan.masks, plan.order, k3, n_chunks)
+    return _dw_views(buf, n_out, k3, n_chunks)
 
 
 def dw_per_tap(feats: torch.Tensor, rows: torch.Tensor, g: torch.Tensor,
@@ -267,13 +276,13 @@ def dw_per_tap(feats: torch.Tensor, rows: torch.Tensor, g: torch.Tensor,
     feats [n_src, Cin] bf16 (the forward's input), rows [K³, n_out] i32 (the
     forward's rulebook, miss → n_src), g [n_out, Cout] bf16 (the output's
     gradient, masked by validity); ``plan`` is the forward rulebook's
-    ``plan_rulebook(rows, n_src)``, made here when not given. On a CUDA
-    tensor this launches the ``gather_conv_dw`` kernels (the work list of
-    :func:`dw_work_list`, the product, the chunks' sum; Cin and Cout
-    multiples of 8, contiguous inputs) with a scratch of
+    ``plan_rulebook(rows, n_src)``, made here when not given. The work list
+    of :func:`dw_work_list`, then the op ``fsf::gather_conv_dw`` over it: on
+    a CUDA tensor the ``gather_conv_dw`` kernels (the product, the chunks'
+    sum; Cin and Cout multiples of 8, contiguous inputs) with a scratch of
     ``dw_chunk_slots(…) · Cin · Cout`` f32 for the chunks' partial sums
-    (17.3 MB at 128 × 128 on an H100); on a CPU tensor it runs
-    :func:`dw_per_tap_plain`."""
+    (17.3 MB at 128 × 128 on an H100); on a CPU tensor
+    :func:`dw_per_tap_plain`, which reads neither plan nor list."""
     if feats.dtype != torch.bfloat16 or g.dtype != torch.bfloat16:
         raise TypeError("dw_per_tap takes bf16 feats and g")
     if rows.dtype != torch.int32:
@@ -283,38 +292,24 @@ def dw_per_tap(feats: torch.Tensor, rows: torch.Tensor, g: torch.Tensor,
     k3, n_out = rows.shape
     n_src, cin = feats.shape
     cout = g.shape[1]
-    if feats.device.type == "cpu":
-        return dw_per_tap_plain(feats, rows, g)
-    if feats.device.type != "cuda" or rows.device != feats.device or g.device != feats.device:
+    dev = feats.device
+    if dev.type not in ("cpu", "cuda") or rows.device != dev or g.device != dev:
         raise ValueError("dw_per_tap: all tensors on one CUDA device (or the CPU)")
-    if cin % 8 or cout % 8:
+    if dev.type == "cuda" and (cin % 8 or cout % 8):
         raise ValueError(f"dw_per_tap kernel needs Cin, Cout % 8 == 0, got {cin}, {cout}")
-    if not (feats.is_contiguous() and rows.is_contiguous() and g.is_contiguous()):
-        raise ValueError("dw_per_tap: inputs must be contiguous")
-    if feats.data_ptr() % 16 or g.data_ptr() % 16:
-        raise ValueError("dw_per_tap: feats and g must be 16-byte aligned")
-    if plan is None:
-        plan = plan_rulebook(rows, n_src)
-    for t in plan:
-        if t.dtype != torch.int32 or t.shape != (n_out,) or t.device != feats.device \
-                or not t.is_contiguous():
-            raise ValueError("dw_per_tap: plan masks and order must be int32 [n_out] on the device")
     if not 1 <= k3 <= 31:
         raise ValueError(f"dw_per_tap kernel takes 1 <= K3 <= 31 taps, got {k3}")
-    sms = torch.cuda.get_device_properties(feats.device).multi_processor_count
+    if plan is None:
+        plan = plan_rulebook(rows, n_src)
+    _check_plan("dw_per_tap", plan, n_out, dev)
+    # a CPU list feeds only the plain version, which ignores it: the least slots
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count if dev.type == "cuda" else 0
     n_chunks = dw_chunk_slots(cin, cout, sms, k3)
     work = dw_work_list(plan, k3, n_chunks)
-    part = torch.empty(n_chunks, cin, cout, dtype=torch.float32, device=feats.device)
-    out = torch.empty(k3, cin, cout, dtype=torch.float32, device=feats.device)
-    kernels.launch(
-        "gather_conv_dw", feats.data_ptr(), n_src, cin, rows.data_ptr(), n_out, k3,
-        g.data_ptr(), cout, plan.order.data_ptr(), n_chunks, dw_tile_n(cout),
-        work.buf.data_ptr(), part.data_ptr(), out.data_ptr(),
-        torch.cuda.current_stream(feats.device).cuda_stream)
-    dw_per_tap.launches += 1
-    return out
+    return torch.ops.fsf.gather_conv_dw(feats, rows, g, plan.order, work.buf, n_chunks)
 
 
+# counted by the op's CUDA implementation (ops/library.py), one per launch
 dw_per_tap.launches = 0
 
 

@@ -19,8 +19,7 @@ import numpy as np
 import torch
 
 from .data.masks import pack_mask_scores
-from .models.camera import CameraData
-from .utils.containers import GroundTruth, PointBatch
+from .utils.containers import CameraData, GroundTruth, PointBatch
 
 
 def make_scene_arrays(

@@ -1,10 +1,20 @@
 """Batch containers: fixed-capacity point and ground-truth sets with
-validity masks (the JAX package's ``utils/containers.py`` layouts)."""
+validity masks, and the camera branch's 2D instance data (the JAX package's
+``utils/containers.py`` and ``models/camera.py`` layouts).
+
+``PointBatch`` and ``CameraData`` are pytree nodes (``fsf.{name}`` when
+serialized, as the JAX package's export tool names them), the inputs of an
+exported program; ``CameraData``'s ``img_h`` and ``img_w`` are static.
+"""
 from __future__ import annotations
 
+import dataclasses
+import json
 from dataclasses import dataclass, replace
 
+import numpy as np
 import torch
+import torch.utils._pytree as pytree
 
 
 @dataclass
@@ -35,3 +45,62 @@ class GroundTruth:
     boxes: torch.Tensor
     labels: torch.Tensor
     valid: torch.Tensor
+
+
+@dataclass
+class CameraData:
+    """Pre-computed 2D instance data.
+
+    masks: [B·cams·H·W, cls] int32, packed ``id | score_u8 << 8`` (id = anno
+    row + 1, 0 = background), flat and channel-last; anno: [B, A, 9] f32
+    ([x1, y1, x2, y2, score, category, cam_id, obj_id, valid]); lidar2img:
+    [B, cams, 4, 4] f32; img_h/img_w: the mask planes' size (required).
+    """
+
+    masks: torch.Tensor
+    anno: torch.Tensor
+    lidar2img: torch.Tensor
+    img_h: int
+    img_w: int
+
+    @classmethod
+    def build(cls, masks_planes, anno, lidar2img, device="cuda") -> "CameraData":
+        """From [B, cams, H, W, cls] packed uint16 planes (NumPy)."""
+        planes = np.asarray(masks_planes)
+        b, cams, h, w, ncls = planes.shape
+        return cls(
+            masks=torch.as_tensor(planes.reshape(-1, ncls).astype(np.int32), device=device),
+            anno=torch.as_tensor(np.asarray(anno, np.float32), device=device),
+            lidar2img=torch.as_tensor(np.asarray(lidar2img, np.float32), device=device),
+            img_h=int(h), img_w=int(w),
+        )
+
+    @property
+    def max_anno(self) -> int:
+        return self.anno.shape[1]
+
+
+def _register(cls, static=()):
+    """``cls`` as a pytree node: its tensor fields are children, the fields
+    in ``static`` (ints) its context."""
+    children = [f.name for f in dataclasses.fields(cls) if f.name not in static]
+
+    def flatten(x):
+        return [getattr(x, n) for n in children], tuple(getattr(x, n) for n in static)
+
+    def flatten_with_keys(x):
+        return ([(pytree.GetAttrKey(n), getattr(x, n)) for n in children],
+                tuple(getattr(x, n) for n in static))
+
+    def unflatten(values, context):
+        return cls(**dict(zip(children, values)), **dict(zip(static, context)))
+
+    pytree.register_pytree_node(
+        cls, flatten, unflatten, serialized_type_name=f"fsf.{cls.__name__}",
+        to_dumpable_context=lambda c: json.dumps(list(c)),
+        from_dumpable_context=lambda s: tuple(json.loads(s)),
+        flatten_with_keys_fn=flatten_with_keys)
+
+
+_register(PointBatch)
+_register(CameraData, static=("img_h", "img_w"))
