@@ -170,6 +170,24 @@ Phases, each of which ends the script with a non-zero exit on failure:
    kernels of a profiler trace of one call; then ``cli/export_model.py
    --config`` (the reconstructed nuScenes file) ``--check`` as a
    subprocess on the card.
+17. offline_tools: the offline tools with the port's own codecs (the card's
+   machine has no PIL, pandas or pyarrow). Every committed fixture JPEG
+   (``tests/torch_offline_fixtures``) decoded by ``data/jpeg.decode_jpeg``
+   and held bitwise to PIL's decode in the manifest, the progressive one
+   refused; the six 900 x 1,600 camera JPEGs copied into the nuScenes entry
+   tree and ``cli/generate_masks.py --backend htc`` run over its three
+   samples at full HTC width (``build_htc`` defaults, seed 0, cuDNN
+   deterministic) at the first score threshold that paints a plane (K3 12
+   times a sample; per sample the decode, ``gpu_ms``, paste-and-paint and
+   write ms), the written tree bitwise ``sample_masks`` of the same model on
+   the decoded images; FSF served from that tree by ``cli/test.py
+   --mask-dir`` (the entry point's launches a request); one AV2-shaped log
+   written by ``data/feather.write_feather`` (three sweeps of ~127 k rows,
+   the annotations, the poses), prepared by ``cli/prepare_av2.py`` (the
+   ``.bin`` files bitwise, read ms per sweep) and read by ``AV2Reader``;
+   the committed fixture feathers decoded against the manifest (ZSTD
+   refused); the ``av2`` phase's detections through ``format_results`` and
+   back through ``read_feather``.
 
 The last lines are a ``{"kernels": [...]}`` JSON object, the card's name and
 power limit from ``nvidia-smi``, and ``{"ok": true, "device": {...}}``.
@@ -2563,12 +2581,14 @@ def av2_check_kernels(model, request) -> dict:
     return results
 
 
-def av2_entry_point(model, cfg, sc, cam) -> None:
+def av2_entry_point(model, cfg, sc, cam) -> tuple:
     """The normal entry point: the seed-0 scene written as an AV2 info
     pickle and a ``.bin`` of 4-dim points, read back by ``AV2Reader``
     (eval form), collated by ``collate_scene`` at the bench capacities,
     served, turned into AV2 detection rows and scored by ``evaluate_av2``
-    against the reader's GT."""
+    against the reader's GT. Returns the served detections as
+    ``format_results`` takes them: (boxes, scores, labels, log id,
+    timestamp)."""
     import pickle
 
     from fullysparsefusion_tpu_torch import synthetic as S
@@ -2611,6 +2631,7 @@ def av2_entry_point(model, cfg, sc, cam) -> None:
          "rows": len(rows), "mAP": metrics["mAP"], "CDS": metrics["CDS"],
          "classes_scored": len(metrics["per_class"]),
          "seconds": round(time.perf_counter() - t0, 3)})
+    return det.boxes[v], det.scores[v], det.labels[v], sample["log_id"], sample["timestamp_ns"]
 
 
 def av2_phase(wrappers) -> dict:
@@ -2621,7 +2642,8 @@ def av2_phase(wrappers) -> dict:
     call of one held to its plain version; two warm-up and three timed
     train steps with the backward kernels held; the reader -> collate ->
     serve -> rows -> metric path. Returns the kernel numbers and the
-    launches for the kernels line."""
+    launches for the kernels line, and for the offline tools each seed's
+    valid points and GT (``sweeps``) and the entry point's detections."""
     from fullysparsefusion_tpu_torch import synthetic as S
     from fullysparsefusion_tpu_torch.parallel import train as ptrain
     from fullysparsefusion_tpu_torch.weights import build_fsf
@@ -2640,7 +2662,11 @@ def av2_phase(wrappers) -> dict:
     av2_stage_counts(cfg, pb0)
     per_request = av2_serve(model, [(s, scenes[s]) for s in REQUEST_SEEDS], wrappers)
     stats = av2_check_kernels(model, (pb0, cd0))
-    av2_entry_point(model, cfg, *scenes[0])
+    entry_dets = av2_entry_point(model, cfg, *scenes[0])
+    sweeps = {}
+    for seed, (sc, _) in scenes.items():
+        gv = sc["gt_valid"][0]
+        sweeps[seed] = (sc["points"][sc["valid"]], sc["gt_boxes"][0][gv], sc["gt_labels"][0][gv])
     del model
     torch.cuda.empty_cache()
     t1 = time.perf_counter()
@@ -2671,7 +2697,8 @@ def av2_phase(wrappers) -> dict:
     torch.cuda.empty_cache()
     log({"phase": "av2", "seconds": round(time.perf_counter() - t0, 3)})
     return dict(stats=stats, per_request=per_request,
-                train_per_step={k: v / AV2_TRAIN_STEPS for k, v in train_launches.items()})
+                train_per_step={k: v / AV2_TRAIN_STEPS for k, v in train_launches.items()},
+                sweeps=sweeps, entry_dets=entry_dets)
 
 
 # the nuScenes entry point: the bench scenes written as an info tree, served
@@ -3476,6 +3503,335 @@ def export_phase(wrappers, root: str, main_per_request: dict) -> dict:
     return per_request
 
 
+# -- the offline tools ------------------------------------------------------------------
+
+OFFLINE_FIXTURES = os.path.join(REPO_ROOT, "tests", "torch_offline_fixtures")
+# the mask tool's score thresholds, tried in turn until a plane is painted
+# (at random weights every class scores ~1/11: see HTC_SCORE_THR)
+OFFLINE_SCORE_THRS = (0.3, 0.1, 0.05, 0.0)
+# the AV2-shaped log: each sweep is the valid points of two AV2 bench scenes
+OFFLINE_AV2_SWEEPS = ((0, 1), (1, 2), (2, 0))
+OFFLINE_AV2_T0, OFFLINE_AV2_DT = 315969629019741000, 100_000_000
+# AV2's annotation columns (av2.structures.cuboid), in its file order
+OFFLINE_AV2_ANN_F32 = ("length_m", "width_m", "height_m", "qw", "qx", "qy", "qz", "tx_m", "ty_m",
+                       "tz_m")
+
+
+def sha256_array(a) -> str:
+    """sha256 of an array's bytes, or of its strings joined by NUL (the
+    digests of ``tests/torch_offline_fixtures/manifest.json``)."""
+    import hashlib
+
+    a = np.asarray(a)
+    if a.dtype == object:
+        return hashlib.sha256("\0".join(a).encode()).hexdigest()
+    return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
+
+
+def refused(fn, path: str, what: str) -> str:
+    """``fn(path)`` must raise a ``ValueError`` naming ``what``; returns it."""
+    try:
+        fn(path)
+    except ValueError as e:
+        if what not in str(e):
+            fail(f"{os.path.basename(path)} raised {e!r}, which does not name {what}")
+        return str(e)
+    fail(f"{os.path.basename(path)} was read, but must be refused ({what})")
+
+
+def offline_jpeg_fixtures(manifest: dict) -> None:
+    """Every committed fixture JPEG through ``decode_jpeg``: shape and
+    sha256 held to PIL's decode in the manifest (bitwise); the progressive
+    one must raise."""
+    from fullysparsefusion_tpu_torch.data.jpeg import decode_jpeg
+
+    t0 = time.perf_counter()
+    held, ms, refusals = 0, {}, []
+    for group in ("jpeg", "cameras"):
+        for name, entry in sorted(manifest[group].items()):
+            path = os.path.join(OFFLINE_FIXTURES, name)
+            if "port_raises" in entry:
+                refusals.append(refused(decode_jpeg, path, entry["port_raises"]))
+                continue
+            t1 = time.perf_counter()
+            img = decode_jpeg(path)
+            ms[name] = round((time.perf_counter() - t1) * 1e3, 3)
+            if list(img.shape) != entry["shape"] or sha256_array(img) != entry["sha256"]:
+                fail(f"decode_jpeg({name}) is not PIL's decode (shape {img.shape})")
+            held += 1
+    log({"phase": "offline_jpeg", "held_bitwise": held, "refused": refusals,
+         "camera_decode_ms": {k: v for k, v in ms.items() if k in manifest["cameras"]},
+         "seconds": round(time.perf_counter() - t0, 3)})
+
+
+def offline_masks(wrappers, tree: dict, root: str, manifest: dict, serve_per_request: dict) -> dict:
+    """The mask tool at full HTC width from JPEGs on disk: the six committed
+    900 x 1,600 camera JPEGs copied to each camera's ``data_path`` of the
+    nuScenes entry tree, ``cli/generate_masks.py --backend htc`` (``build_htc``
+    defaults, seed 0, ``--device cuda``, cuDNN deterministic) at the first
+    of ``OFFLINE_SCORE_THRS`` that paints a plane, the counters zeroed just
+    before each run and read just after (K3 12 times a sample, nothing
+    else); the written tree bitwise ``sample_masks`` of the same model on
+    the decoded images (which hold to the manifest), its PNG set the
+    painted detections' planes; then ``cli/test.py --mask-dir`` serves FSF
+    from it at ``--mask-downsample 2`` with the entry point's launches.
+    Returns the launches per sample and per served request."""
+    import pickle
+    import shutil
+
+    from fullysparsefusion_tpu_torch import generate_masks as gm
+    from fullysparsefusion_tpu_torch.cli import generate_masks as G
+    from fullysparsefusion_tpu_torch.cli import test as T
+    from fullysparsefusion_tpu_torch.data.jpeg import load_sample_images
+    from fullysparsefusion_tpu_torch.data.masks import load_sample_masks
+    from fullysparsefusion_tpu_torch.data.nuscenes import ordered_cam_names
+
+    t0 = time.perf_counter()
+    data_root = os.path.dirname(tree["info"])
+    with open(tree["info"], "rb") as f:
+        infos = pickle.load(f)["infos"]
+    for info in infos:
+        for name, cam in info["cams"].items():
+            dst = os.path.join(data_root, cam["data_path"])
+            os.makedirs(os.path.dirname(dst), exist_ok=True)
+            shutil.copyfile(os.path.join(OFFLINE_FIXTURES, f"{name}.jpg"), dst)
+    out_dir = os.path.join(root, "htc_masks")
+    built, load = [], G.load_htc
+
+    def load_once(args, device):  # the CLI's model, built once across the thresholds
+        if not built:
+            built.append(load(args, device))
+        return built[0]
+
+    G.load_htc = load_once
+    painted = {}
+    try:
+        with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True,
+                                        allow_tf32=False):
+            for thr in OFFLINE_SCORE_THRS:
+                shutil.rmtree(out_dir, ignore_errors=True)
+                zero(wrappers)
+                recs = G.main(["--backend", "htc", "--info-pkl", tree["info"], "--data-root",
+                               data_root, "--out-dir", out_dir, "--device", "cuda", "--seed", "0",
+                               "--score-thr", str(thr)])
+                launches = counts(wrappers)
+                painted[thr] = sum(r["nonempty_planes"] for r in recs)
+                if painted[thr]:
+                    break
+            if not painted[thr]:
+                fail(f"the mask tool painted no plane at any threshold {OFFLINE_SCORE_THRS}")
+            model = built[0]
+            expect = {k: 0 for k in wrappers}
+            expect["nms_keep"] = HTC_NMS_PER_CAMERA * HTC_CAMS * len(infos)
+            if launches != expect:
+                fail(f"the mask tool launched {launches}, expected {expect}")
+            for info, rec in zip(infos, recs):
+                if rec["launches"]["nms_keep"] != HTC_NMS_PER_CAMERA * HTC_CAMS:
+                    fail(f"mask tool sample {rec['token']}: launches {rec['launches']}")
+                images = load_sample_images(info, data_root)
+                for c, name in enumerate(ordered_cam_names(info["cams"])):
+                    if sha256_array(images[c]) != manifest["cameras"][f"{name}.jpg"]["sha256"]:
+                        fail(f"mask tool sample {rec['token']}: camera {name} decodes differently")
+                pasted, paste = [], gm.paste_detections
+                gm.paste_detections = lambda *a: pasted.append(paste(*a)) or pasted[-1]
+                try:
+                    planes, anno = gm.sample_masks(model, images, thr, model.num_classes)
+                finally:
+                    gm.paste_detections = paste
+                got, got_anno = load_sample_masks(out_dir, info["token"], HTC_CAMS,
+                                                  model.num_classes, HTC_IMG_HW)
+                if not (np.array_equal(got, planes) and np.array_equal(got_anno, anno)):
+                    fail(f"mask tool sample {rec['token']}: the written tree is not sample_masks'")
+                files = sorted(f for f in os.listdir(os.path.join(out_dir, info["token"]))
+                               if f.endswith(".png"))
+                if files != sorted(f"{c}_{k}.png" for c, k in gm.plane_keys(pasted[0])):
+                    fail(f"mask tool sample {rec['token']}: PNG set {files}")
+                log({"phase": "offline_mask_sample", "score_thr": thr,
+                     **{k: (round(v, 3) if isinstance(v, float) else v) for k, v in rec.items()}})
+    finally:
+        G.load_htc = load
+    parameters = sum(p.numel() for p in built[0].parameters())
+    del built[:], model
+    torch.cuda.empty_cache()
+    log({"phase": "offline_masks", "samples": len(recs), "parameters": parameters,
+         "painted_planes_per_threshold": {str(k): v for k, v in painted.items()},
+         "score_thr": thr, "launches": launches,
+         "mean_ms": {k: round(sum(r[k] for r in recs) / len(recs), 3)
+                     for k in ("decode_ms", "gpu_ms", "paste_paint_ms", "write_ms")},
+         "seconds": round(time.perf_counter() - t0, 3)})
+
+    t1 = time.perf_counter()
+    zero(wrappers)
+    res = T.run(bench_config(), T.parse_args([
+        "--model", "fsf", "--info-pkl", tree["info"], "--data-root", data_root, "--mask-dir",
+        out_dir, "--mask-downsample", str(NUSC_ENTRY_SCALE), "--out",
+        os.path.join(root, "htc_masks_detections.json")]))
+    served = counts(wrappers)
+    for rec in res["samples"]:
+        if any(rec["launches"][k] != serve_per_request[k] for k in NUSC_ENTRY_KERNELS):
+            fail(f"FSF on the mask tool's tree, {rec['token']}: launches {rec['launches']}, "
+                 f"the entry point's {serve_per_request}")
+        log({"phase": "offline_masks_request", **{k: (round(v, 3) if isinstance(v, float) else v)
+                                                   for k, v in rec.items()}})
+    for r in res["results"]:
+        if not all(math.isfinite(x) for b in r["boxes"] for x in b + r["scores"]):
+            fail(f"FSF on the mask tool's tree: non-finite detections for {r['token']}")
+    per_request = {k: v / len(res["samples"]) for k, v in served.items()}
+    log({"phase": "offline_masks_serve", "requests": len(res["samples"]),
+         "detections": [len(r["scores"]) for r in res["results"]],
+         "launches_per_request": per_request, "seconds": round(time.perf_counter() - t1, 3)})
+    del res
+    torch.cuda.empty_cache()
+    return dict(per_sample={k: v / len(recs) for k, v in launches.items()},
+                per_request=per_request)
+
+
+def offline_av2(root: str, manifest: dict, av2: dict) -> None:
+    """AV2 preparation at AV2's sizes: one log written by the port's Feather
+    writer in AV2's schemas (three sweeps of float16 ``x, y, z``, uint8
+    ``intensity`` and ``laser_number``, int32 ``offset_ns``, each the valid
+    points of the two bench scenes of ``OFFLINE_AV2_SWEEPS``; their GT as
+    ``annotations.feather``; ``city_SE3_egovehicle.feather``), prepared by
+    ``cli/prepare_av2.py``: each ``.bin`` bitwise the float16 -> float32
+    points and ``intensity / 255``, the boxes against the scenes', the
+    frames read by ``AV2Reader``; the committed fixture feathers decoded
+    against the manifest (the ZSTD one refused); the ``av2`` phase's
+    detections through ``format_results`` and back through ``read_feather``
+    equal to their rows."""
+    from fullysparsefusion_tpu_torch.cli import prepare_av2 as P
+    from fullysparsefusion_tpu_torch.config import AV2_CLASS_NAMES
+    from fullysparsefusion_tpu_torch.data.av2 import (AV2Reader, boxes_to_av2_rows,
+                                                      yaw_to_quat_wxyz)
+    from fullysparsefusion_tpu_torch.data.feather import read_feather, write_feather
+
+    t0 = time.perf_counter()
+    split = os.path.join(root, "av2", "sensor")
+    log_dir = os.path.join(split, "synthetic_log")
+    lidar = os.path.join(log_dir, "sensors", "lidar")
+    os.makedirs(lidar)
+    rng = np.random.default_rng(0)
+    stamps = [OFFLINE_AV2_T0 + k * OFFLINE_AV2_DT for k in range(len(OFFLINE_AV2_SWEEPS))]
+    sweeps, write_ms, sizes, ann = {}, {}, {}, []
+    for ts, seeds in zip(stamps, OFFLINE_AV2_SWEEPS):
+        pts = np.concatenate([av2["sweeps"][s][0] for s in seeds])
+        n = len(pts)
+        cols = {"x": pts[:, 0].astype(np.float16), "y": pts[:, 1].astype(np.float16),
+                "z": pts[:, 2].astype(np.float16),
+                "intensity": np.clip(np.round(pts[:, 3] * 255), 0, 255).astype(np.uint8),
+                "laser_number": rng.integers(0, 64, n).astype(np.uint8),
+                "offset_ns": rng.integers(0, 10**8, n).astype(np.int32)}
+        path = os.path.join(lidar, f"{ts}.feather")
+        t1 = time.perf_counter()
+        write_feather(cols, path)
+        write_ms[ts] = round((time.perf_counter() - t1) * 1e3, 3)
+        sizes[ts] = dict(rows=n, bytes=os.path.getsize(path))
+        sweeps[ts] = cols
+        for s in seeds:
+            boxes, labels = av2["sweeps"][s][1:]
+            ann += [(ts, b, int(c)) for b, c in zip(boxes, labels)]
+    boxes = np.stack([b[:7] for _, b, _ in ann]).astype(np.float32)
+    q = yaw_to_quat_wxyz(boxes[:, 6].astype(np.float64)).astype(np.float32)
+    centre = dict(length_m=boxes[:, 3], width_m=boxes[:, 4], height_m=boxes[:, 5], qw=q[:, 0],
+                  qx=q[:, 1], qy=q[:, 2], qz=q[:, 3], tx_m=boxes[:, 0], ty_m=boxes[:, 1],
+                  tz_m=boxes[:, 2] + boxes[:, 5] / 2)
+    ann_cols = {"timestamp_ns": np.array([t for t, _, _ in ann], np.int64),
+                "track_uuid": np.array([f"track{i:04d}" for i in range(len(ann))], object),
+                "category": np.array([AV2_CLASS_NAMES[c].upper() for _, _, c in ann], object),
+                **{k: centre[k].astype(np.float32) for k in OFFLINE_AV2_ANN_F32},
+                "num_interior_pts": np.zeros(len(ann), np.int64)}
+    t1 = time.perf_counter()
+    write_feather(ann_cols, os.path.join(log_dir, "annotations.feather"))
+    write_feather({"timestamp_ns": np.array(stamps, np.int64),
+                   **{k: np.zeros(len(stamps)) for k in ("qx", "qy", "qz", "tx_m", "ty_m", "tz_m")},
+                   "qw": np.ones(len(stamps))}, os.path.join(log_dir, "city_SE3_egovehicle.feather"))
+    write_ms["annotations_and_pose"] = round((time.perf_counter() - t1) * 1e3, 3)
+
+    read_ms = {}
+    for ts in stamps:
+        t1 = time.perf_counter()
+        back = read_feather(os.path.join(lidar, f"{ts}.feather"))
+        read_ms[ts] = round((time.perf_counter() - t1) * 1e3, 3)
+        if back.keys() != sweeps[ts].keys() or not all(
+                back[k].dtype == v.dtype and np.array_equal(back[k], v)
+                for k, v in sweeps[ts].items()):
+            fail(f"read_feather of sweep {ts} differs from what write_feather wrote")
+    t1 = time.perf_counter()
+    info_path = os.path.join(root, "av2", "av2_infos.pkl")
+    points_out = os.path.join(root, "av2", "points")
+    infos = P.main(["--av2-root", split, "--out", info_path, "--points-out", points_out])
+    prepare_s = time.perf_counter() - t1
+    if [i["timestamp_ns"] for i in infos] != stamps:
+        fail(f"prepare_av2 gave frames {[i['timestamp_ns'] for i in infos]}")
+    frames = []
+    reader = AV2Reader(info_path, os.path.dirname(points_out), AV2_CLASS_NAMES, training=False)
+    for i, (info, ts) in enumerate(zip(infos, stamps)):
+        c = sweeps[ts]
+        want = np.stack([c["x"], c["y"], c["z"], c["intensity"] / 255.0], 1).astype(np.float32)
+        got = np.fromfile(os.path.join(os.path.dirname(points_out), info["lidar_path"]),
+                          np.float32).reshape(-1, 4)
+        if not np.array_equal(got, want):
+            fail(f"prepare_av2: {info['lidar_path']} is not the sweep's float32 points")
+        sel = ann_cols["timestamp_ns"] == ts
+        src = boxes[sel]
+        gb = info["gt_boxes"]
+        yaw_err = np.abs(np.angle(np.exp(1j * (gb[:, 6].astype(np.float64) - src[:, 6]))))
+        if len(gb) != int(sel.sum()) or not np.array_equal(gb[:, [0, 1, 3, 4, 5]],
+                                                         src[:, [0, 1, 3, 4, 5]]) \
+                or np.abs(gb[:, 2] - src[:, 2]).max() > 1e-5 or yaw_err.max() > 1e-5:
+            fail(f"prepare_av2: frame {ts}'s boxes differ from the scenes' GT")
+        s = reader.sample(i)
+        frames.append(dict(points=int(len(s["points"])), gt_written=int(sel.sum()),
+                           gt_read=int(len(s["gt_labels"]))))
+        if not len(s["points"]):
+            fail(f"AV2Reader read no points of frame {ts}")
+
+    fixtures, refusals = {}, []
+    for name, entry in sorted(manifest["feather"].items()):
+        path = os.path.join(OFFLINE_FIXTURES, name)
+        if "port_raises" in entry:
+            refusals.append(refused(read_feather, path, entry["port_raises"]))
+            continue
+        cols = read_feather(path)
+        if {k: (str(v.dtype), sha256_array(v)) for k, v in cols.items()} != \
+                {k: (e["dtype"], e["sha256"]) for k, e in entry["columns"].items()}:
+            fail(f"read_feather({name}) differs from pandas' read in the manifest")
+        fixtures[name] = len(next(iter(cols.values())))
+
+    boxes_d, scores, labels, log_id, ts = av2["entry_dets"]
+    out = reader.format_results([(boxes_d, scores, labels, log_id, ts)],
+                                os.path.join(root, "av2", "detections.feather"))
+    rows = boxes_to_av2_rows(boxes_d, scores, labels, AV2_CLASS_NAMES, log_id, ts)
+    back = read_feather(out)
+    if rows and (list(back) != list(rows[0]) or not all(
+            back[k].tolist() == [r[k] for r in rows] for k in rows[0])):
+        fail("format_results read back through read_feather differs from its rows")
+    if len(rows) != (len(next(iter(back.values()))) if back else 0):
+        fail(f"format_results wrote {len(back)} columns for {len(rows)} rows")
+    log({"phase": "offline_av2", "sweeps": {str(k): v for k, v in sizes.items()},
+         "write_ms": {str(k): v for k, v in write_ms.items()},
+         "read_ms_per_sweep": {str(k): v for k, v in read_ms.items()},
+         "annotation_rows": len(ann), "prepare_seconds": round(prepare_s, 3), "frames": frames,
+         "bins_held_bitwise": len(infos), "fixtures_held": fixtures, "refused": refusals,
+         "format_results_rows": len(rows), "detections_bytes": os.path.getsize(out),
+         "seconds": round(time.perf_counter() - t0, 3)})
+
+
+def offline_tools_phase(wrappers, root: str, tree: dict, serve_per_request: dict,
+                        av2: dict) -> dict:
+    """The offline tools on the card's machine, with the port's own codecs:
+    the fixture JPEGs, the mask tool at full HTC width over the nuScenes
+    entry tree and FSF served from its masks, AV2 preparation and export.
+    Returns the mask tool's launches per sample and FSF's per request."""
+    t0 = time.perf_counter()
+    with open(os.path.join(OFFLINE_FIXTURES, "manifest.json")) as f:
+        manifest = json.load(f)
+    offline_jpeg_fixtures(manifest)
+    launches = offline_masks(wrappers, tree, root, manifest, serve_per_request)
+    offline_av2(root, manifest, av2)
+    log({"phase": "offline_tools", "seconds": round(time.perf_counter() - t0, 3)})
+    return launches
+
+
 KERNEL_INFO = {
     "gather_conv": ("fullysparsefusion_tpu_torch/csrc/gather_conv.cu",
                     "fullysparsefusion_tpu/ops/pallas_kernels.py:366"),
@@ -3559,6 +3915,7 @@ def main() -> int:
             wrappers, nusc["tree"], root,
             main_per_request=main_per_request, nusc_per_step=nusc["train_per_step"])
         exported = export_phase(wrappers, root, main_per_request)
+        offline = offline_tools_phase(wrappers, root, nusc["tree"], nusc["per_request"], av2)
     entries = []
     for name, st in stats.items():
         source, replaces = KERNEL_INFO[name]
@@ -3615,7 +3972,9 @@ def main() -> int:
                      nusc_entry_train_launches_per_step=nusc["train_per_step"][name],
                      interop_launches_per_request=interop[name],
                      export_launches_per_request=exported["fsf"][name],
-                     fsd_export_launches_per_request=exported["fsd"][name])
+                     fsd_export_launches_per_request=exported["fsd"][name],
+                     mask_tool_launches_per_sample=offline["per_sample"][name],
+                     mask_tool_fsf_launches_per_request=offline["per_request"][name])
         if name == "nms_keep":
             entry["tta"] = nusc["tta"]
         entries.append(entry)

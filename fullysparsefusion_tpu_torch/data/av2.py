@@ -4,7 +4,7 @@ port's copy of the JAX package's ``data/av2.py``, NumPy only).
 Replaces Argo2Dataset (datasets/argo2_dataset.py:25-705): consumes the
 KITTI-style info pickles produced by the AV2 preparation tool
 (tools/AV2/argo2_pickle_mmdet_fusion.py — re-implemented in
-``tools/prepare_av2.py``), emits fixed-shape batches, and formats detections
+``cli/prepare_av2.py``), emits fixed-shape batches, and formats detections
 back into the av2 evaluation feather schema (lidar_box_to_argo2 semantics:
 bottom-center xyz → gravity center, yaw → quaternion wxyz).
 """
@@ -17,6 +17,7 @@ from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
+from . import feather
 from . import pipelines as P
 
 LABEL_ATTR = (
@@ -65,10 +66,9 @@ def boxes_to_av2_rows(
 
 
 def write_feather(rows: List[dict], path: str) -> None:
-    import pandas as pd
-
-    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
-    pd.DataFrame(rows).to_feather(path)
+    """The rows as a Feather V2 file, the one ``pd.DataFrame(rows).to_feather``
+    writes (``data/feather.py``; no pandas)."""
+    feather.write_feather(rows, path)
 
 
 @dataclass

@@ -12,7 +12,7 @@ row + 1). The result is what ``data/masks.py::load_sample_masks`` reads
 from the tool's PNGs: ``[cams, H, W, classes]`` uint8 instance ids and the
 ``[max_anno, 9]`` anno table, which ``data/masks.py::pack_mask_scores``
 packs for FSF. ``data/masks.py::save_sample`` writes them as the tool's
-PNGs.
+PNGs, one per :func:`plane_keys` pair (``cli/generate_masks.py``).
 """
 from __future__ import annotations
 
@@ -145,6 +145,21 @@ def paint_sample(dets: Sequence[dict], num_cams: int, num_classes: int,
                         int(d["category"])]
         region[m] = row_of[i] + 1
     return planes, annos
+
+
+def plane_keys(dets: Sequence[dict], max_anno: int = 250) -> List[Tuple[int, int]]:
+    """The (camera, class) planes that the mask tool writes a PNG for: one
+    per pair that any of the top ``max_anno`` detections has, even when its
+    pasted mask is empty, in the order the tool paints them (ascending
+    score)."""
+    score = [d["score"] for d in dets]
+    top = sorted(range(len(dets)), key=lambda i: -score[i])[:max_anno]
+    keys: List[Tuple[int, int]] = []
+    for i in sorted(top, key=lambda i: score[i]):
+        key = (int(dets[i]["cam_id"]), int(dets[i]["category"]))
+        if key not in keys:
+            keys.append(key)
+    return keys
 
 
 def sample_masks(model: HTC, images: np.ndarray, score_thr: float = 0.3, num_classes: int = 10,

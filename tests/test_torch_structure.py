@@ -3,6 +3,7 @@ and the synthetic scene generators."""
 import ast
 import dataclasses
 import os
+import sys
 
 import numpy as np
 import pytest
@@ -18,6 +19,8 @@ from test_torch_ddp_port import torch_one_thread  # noqa: F401 (autouse)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, "fullysparsefusion_tpu_torch")
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "fullysparsefusion_tpu")
+# host libraries that the card's machine lacks: the port has its own codecs
+FORBIDDEN_HOST = ("PIL", "pandas", "pyarrow", "cv2")
 
 
 def _port_sources():
@@ -42,6 +45,31 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     bad = [(os.path.relpath(p, REPO), m) for p in sources for m in _imported_modules(p)
            if m.split(".")[0] in FORBIDDEN]
     assert bad == []
+
+
+def test_port_imports_no_host_image_or_table_library():
+    """Not even inside a function: the JPEG, PNG and Feather codecs are the
+    port's own (``data/jpeg.py``, ``data/png.py``, ``data/feather.py``)."""
+    bad = [(os.path.relpath(p, REPO), m) for p in _port_sources() for m in _imported_modules(p)
+           if m.split(".")[0] in FORBIDDEN_HOST]
+    assert bad == []
+
+
+def test_av2_format_results_runs_without_pandas(tmp_path, monkeypatch):
+    from fullysparsefusion_tpu_torch.data import av2
+    from fullysparsefusion_tpu_torch.data.feather import read_feather
+
+    for name in FORBIDDEN_HOST:  # an import of any of them now raises ImportError
+        monkeypatch.setitem(sys.modules, name, None)
+    reader = av2.AV2Reader.__new__(av2.AV2Reader)
+    reader.class_names = ("REGULAR_VEHICLE", "BUS")
+    boxes = np.arange(14, dtype=np.float32).reshape(2, 7)
+    path = reader.format_results([(boxes, np.array([0.5, 0.25], np.float32), np.array([1, 0]),
+                                   "log", 7)], str(tmp_path / "out.feather"))
+    cols = read_feather(path)
+    assert cols["category"].tolist() == ["BUS", "REGULAR_VEHICLE"]
+    np.testing.assert_array_equal(cols["tz_m"], [2 + 5 / 2, 9 + 12 / 2])
+    assert cols["timestamp_ns"].tolist() == [7, 7]
 
 
 @pytest.mark.parametrize("name", ["nusc_fsf_config", "tiny_fsf_config", "tiny_fsd_config"])
