@@ -187,7 +187,25 @@ Phases, each of which ends the script with a non-zero exit on failure:
    ``.bin`` files bitwise, read ms per sweep) and read by ``AV2Reader``;
    the committed fixture feathers decoded against the manifest (ZSTD
    refused); the ``av2`` phase's detections through ``format_results`` and
-   back through ``read_feather``.
+   back through ``read_feather``. The log also carries a seven-camera ring
+   rig (``cli/make_fake_av2.RingRig``: AV2's layout, 2,048 x 1,550 ring
+   cameras, the front one portrait), an ego at 10 m/s turning at 0.3
+   rad/s and images at 20 Hz off the sweeps.
+18. av2_disk: FSF at AV2's full width served from that log on disk, with
+   the ``av2`` phase's model: single-channel masks painted from each GT
+   box's interior points by the rig's own geometry (camera pose in the
+   city at the image's timestamp; ``cli/make_fake_av2.paint_masks``);
+   ``cli/prepare_av2.py --fusion`` (96 of 96 GT boxes read back per frame,
+   against the plain preparation's title-cased count; the nearest images);
+   ``cli/test.py --model fsf --eval-protocol av2 --eval`` over the three
+   frames (per request the host's read, mask and input ms, ``gpu_ms``,
+   detections and launches), the feather read back equal to its rows,
+   the metrics finite, one request again bitwise, every K1, K2 and K3 call
+   of one request held to its plain version; of the in-box points the rig
+   sees, the share whose lookup (``points_in_mask_compact``, read from the
+   model's camera module) holds their own class must reach 0.95 and beat
+   the uncompensated chain's; the points in three or more cameras'
+   images are counted (the lookup keeps two).
 
 The last lines are a ``{"kernels": [...]}`` JSON object, the card's name and
 power limit from ``nvidia-smi``, and ``{"ok": true, "device": {...}}``.
@@ -2558,25 +2576,27 @@ def av2_serve(model, requests, wrappers) -> dict:
     return per_request
 
 
-def av2_check_kernels(model, request) -> dict:
+def av2_check_kernels(model, request, phase: str = "av2_kernels") -> dict:
     """Every K1, K2 and K3 call of one AV2 request held to its plain version
     (K1 within ``K1_RTOL``, K2 and K3 bitwise) and graph-timed, each beside
-    its bound (K3 at C = 26)."""
+    its bound (K3 at C = 26). ``phase`` names the summary line; the calls'
+    lines take it with ``kernels`` read as ``kernel_calls``."""
     t0 = time.perf_counter()
+    calls_phase = phase.replace("kernels", "kernel_calls")
     calls = capture_request(lambda: model.get_bboxes(model(*request, 1), 1))
-    results = {"gather_conv": replay_gather_conv(calls["gather_conv"], "av2_kernel_calls")}
+    results = {"gather_conv": replay_gather_conv(calls["gather_conv"], calls_phase)}
     for c in results["gather_conv"]["calls"]:
         hold_bound(f"AV2 K1 [{c['n_out']} x {c['cin']} -> {c['cout']}]", c["ms"], c["bound_ms"])
     (call,) = calls["ccl_roots"]
-    results["ccl_roots"] = replay_ccl_roots(call, "av2_kernel_calls")
+    results["ccl_roots"] = replay_ccl_roots(call, calls_phase)
     (call,) = calls["nms_keep"]
     if call[1].shape[0] != model.cfg.num_classes:
         fail(f"the AV2 decode's K3 call has C = {call[1].shape[0]}")
-    results["nms_keep"] = replay_nms_keep(call, "av2_kernel_calls")
+    results["nms_keep"] = replay_nms_keep(call, calls_phase)
     del results["nms_keep"]["flop"], results["nms_keep"]["byte"]
     for name in ("ccl_roots", "nms_keep"):
         hold_bound(f"AV2 {name}", results[name]["ms"], results[name]["bound_ms"])
-    log({"phase": "av2_kernels", "calls": {k: len(v) for k, v in calls.items()},
+    log({"phase": phase, "calls": {k: len(v) for k, v in calls.items()},
          "seconds": round(time.perf_counter() - t0, 3)})
     return results
 
@@ -2643,7 +2663,8 @@ def av2_phase(wrappers) -> dict:
     train steps with the backward kernels held; the reader -> collate ->
     serve -> rows -> metric path. Returns the kernel numbers and the
     launches for the kernels line, and for the offline tools each seed's
-    valid points and GT (``sweeps``) and the entry point's detections."""
+    valid points and GT (``sweeps``), the entry point's detections and the
+    served model (eval form, for ``av2_disk``)."""
     from fullysparsefusion_tpu_torch import synthetic as S
     from fullysparsefusion_tpu_torch.parallel import train as ptrain
     from fullysparsefusion_tpu_torch.weights import build_fsf
@@ -2663,6 +2684,7 @@ def av2_phase(wrappers) -> dict:
     per_request = av2_serve(model, [(s, scenes[s]) for s in REQUEST_SEEDS], wrappers)
     stats = av2_check_kernels(model, (pb0, cd0))
     entry_dets = av2_entry_point(model, cfg, *scenes[0])
+    serving = model          # served again from disk by av2_disk
     sweeps = {}
     for seed, (sc, _) in scenes.items():
         gv = sc["gt_valid"][0]
@@ -2698,7 +2720,7 @@ def av2_phase(wrappers) -> dict:
     log({"phase": "av2", "seconds": round(time.perf_counter() - t0, 3)})
     return dict(stats=stats, per_request=per_request,
                 train_per_step={k: v / AV2_TRAIN_STEPS for k, v in train_launches.items()},
-                sweeps=sweeps, entry_dets=entry_dets)
+                sweeps=sweeps, entry_dets=entry_dets, model=serving)
 
 
 # the nuScenes entry point: the bench scenes written as an info tree, served
@@ -3691,13 +3713,17 @@ def offline_av2(root: str, manifest: dict, av2: dict) -> None:
     writer in AV2's schemas (three sweeps of float16 ``x, y, z``, uint8
     ``intensity`` and ``laser_number``, int32 ``offset_ns``, each the valid
     points of the two bench scenes of ``OFFLINE_AV2_SWEEPS``; their GT as
-    ``annotations.feather``; ``city_SE3_egovehicle.feather``), prepared by
-    ``cli/prepare_av2.py``: each ``.bin`` bitwise the float16 -> float32
-    points and ``intensity / 255``, the boxes against the scenes', the
-    frames read by ``AV2Reader``; the committed fixture feathers decoded
-    against the manifest (the ZSTD one refused); the ``av2`` phase's
-    detections through ``format_results`` and back through ``read_feather``
-    equal to their rows."""
+    ``annotations.feather``; ``city_SE3_egovehicle.feather`` of an ego at 10
+    m/s turning at 0.3 rad/s, at every sweep and image timestamp; the
+    calibration of ``cli/make_fake_av2.RingRig``, AV2's seven-camera ring
+    layout; an empty ``.jpg`` per image, the cameras at 20 Hz off the
+    sweeps), prepared by ``cli/prepare_av2.py``: each ``.bin`` bitwise the
+    float16 -> float32 points and ``intensity / 255``, the boxes against
+    the scenes', the frames read by ``AV2Reader``; the committed fixture
+    feathers decoded against the manifest (the ZSTD one refused); the
+    ``av2`` phase's detections through ``format_results`` and back through
+    ``read_feather`` equal to their rows. Returns the log for ``av2_disk``."""
+    from fullysparsefusion_tpu_torch.cli import make_fake_av2 as F
     from fullysparsefusion_tpu_torch.cli import prepare_av2 as P
     from fullysparsefusion_tpu_torch.config import AV2_CLASS_NAMES
     from fullysparsefusion_tpu_torch.data.av2 import (AV2Reader, boxes_to_av2_rows,
@@ -3739,12 +3765,14 @@ def offline_av2(root: str, manifest: dict, av2: dict) -> None:
                 "category": np.array([AV2_CLASS_NAMES[c].upper() for _, _, c in ann], object),
                 **{k: centre[k].astype(np.float32) for k in OFFLINE_AV2_ANN_F32},
                 "num_interior_pts": np.zeros(len(ann), np.int64)}
+    rig = F.RingRig()
+    cam_stamps = F.camera_stamps(stamps)
     t1 = time.perf_counter()
     write_feather(ann_cols, os.path.join(log_dir, "annotations.feather"))
-    write_feather({"timestamp_ns": np.array(stamps, np.int64),
-                   **{k: np.zeros(len(stamps)) for k in ("qx", "qy", "qz", "tx_m", "ty_m", "tz_m")},
-                   "qw": np.ones(len(stamps))}, os.path.join(log_dir, "city_SE3_egovehicle.feather"))
+    F.write_poses(log_dir, np.concatenate([np.array(stamps, np.int64), *cam_stamps]))
     write_ms["annotations_and_pose"] = round((time.perf_counter() - t1) * 1e3, 3)
+    F.write_rig(log_dir, rig)
+    F.write_cameras(log_dir, cam_stamps)
 
     read_ms = {}
     for ts in stamps:
@@ -3755,6 +3783,8 @@ def offline_av2(root: str, manifest: dict, av2: dict) -> None:
                 back[k].dtype == v.dtype and np.array_equal(back[k], v)
                 for k, v in sweeps[ts].items()):
             fail(f"read_feather of sweep {ts} differs from what write_feather wrote")
+    ann_labels = np.array([c for _, _, c in ann])
+    log_frames = {}
     t1 = time.perf_counter()
     info_path = os.path.join(root, "av2", "av2_infos.pkl")
     points_out = os.path.join(root, "av2", "points")
@@ -3782,6 +3812,7 @@ def offline_av2(root: str, manifest: dict, av2: dict) -> None:
         s = reader.sample(i)
         frames.append(dict(points=int(len(s["points"])), gt_written=int(sel.sum()),
                            gt_read=int(len(s["gt_labels"]))))
+        log_frames[ts] = dict(points=got, boxes=src, labels=ann_labels[sel])
         if not len(s["points"]):
             fail(f"AV2Reader read no points of frame {ts}")
 
@@ -3814,21 +3845,244 @@ def offline_av2(root: str, manifest: dict, av2: dict) -> None:
          "bins_held_bitwise": len(infos), "fixtures_held": fixtures, "refused": refusals,
          "format_results_rows": len(rows), "detections_bytes": os.path.getsize(out),
          "seconds": round(time.perf_counter() - t0, 3)})
+    return dict(split=split, log_id="synthetic_log", frames=log_frames, rig=rig,
+                cam_stamps=cam_stamps, gt_read_plain=[f["gt_read"] for f in frames])
+
+
+# the AV2 tree served from disk: masks painted at the cameras' native sizes,
+# read at --mask-downsample 2 (the 775 x 1,024 grid of the AV2 bench's planes)
+AV2_DISK_DOWNSAMPLE = 2
+# a painted point covers a square of 2 r + 1 native pixels: the loader's
+# nearest resize and downsample read a cell up to 3 source pixels before the
+# point's own at downsample 2 (the front camera's resize)
+AV2_DISK_RADIUS = 3
+AV2_DISK_MIN_HIT_SHARE = 0.95
+AV2_DISK_KERNELS = ("gather_conv", "ccl_roots", "nms_keep")
+
+
+def av2_rig_hits(av2_log: dict, info: dict, frame: dict, painted: dict, xyz: np.ndarray, ids,
+                 ids_uncompensated) -> dict:
+    """Of one frame's in-box points (``xyz``: the request's valid points),
+    those the rig sees (their own instance id at their true pixel, by the
+    rig's geometry, in at least one camera) and of those the ones whose
+    lookup slots (``ids`` [N, 2, cls], as the model's camera module got
+    them; ``ids_uncompensated`` from the matrices without ego-motion
+    compensation) hold an instance of their own class; and the points and
+    in-box points inside three or more cameras' images by the prepared
+    matrices and the cameras' native sizes."""
+    from fullysparsefusion_tpu_torch.cli import make_fake_av2 as F
+    from fullysparsefusion_tpu_torch.cli.prepare_av2 import RING_CAMERAS
+
+    rig, ts = av2_log["rig"], info["timestamp_ns"]
+    p64 = xyz.astype(np.float64)
+    box = np.full(len(xyz), -1)
+    for j, b in enumerate(frame["boxes"]):
+        box[F.in_box(p64, b.astype(np.float64)) & (box < 0)] = j
+    city = F.to_city(ts, p64)
+    row_of = {(r["cam_id"], j): r["obj_id"] for r, j in zip(painted["rows"], painted["boxes"])}
+    seen = np.zeros(len(xyz), bool)
+    in_images = np.zeros(len(xyz), np.int64)
+    for c, cam in enumerate(RING_CAMERAS):
+        h, w = rig.hw(c)
+        u, v, z = F.project(rig, c, info["cams"][cam]["timestamp_ns"], city)
+        ok = (z > 1e-3) & (u >= 0) & (u < w) & (v >= 0) & (v < h)
+        px = np.where(ok, np.floor(u), 0).astype(np.int64)
+        py = np.where(ok, np.floor(v), 0).astype(np.int64)
+        own_of_box = np.array([row_of.get((c, j), -2) + 1 for j in range(len(frame["boxes"]))])
+        own = np.where(box >= 0, own_of_box[np.maximum(box, 0)], -1)
+        seen |= ok & (box >= 0) & (painted["ids"][c][py, px] == own)
+        m = info["lidar2img"][c]
+        q = p64 @ m[:3, :3].T + m[:3, 3]
+        with np.errstate(divide="ignore", invalid="ignore"):
+            qu, qv = q[:, 0] / q[:, 2], q[:, 1] / q[:, 2]
+        in_images += (q[:, 2] > 1e-3) & (qu >= 0) & (qu < w) & (qv >= 0) & (qv < h)
+    cls = frame["labels"][np.maximum(box, 0)]
+    rows = np.arange(len(xyz))
+
+    def hit(slots):
+        return (slots[rows, :, cls] > 0).any(1)
+
+    return dict(in_box=int((box >= 0).sum()), seen=int(seen.sum()),
+                hits=int((seen & hit(ids)).sum()),
+                hits_uncompensated=int((seen & hit(ids_uncompensated)).sum()),
+                three_plus=int((in_images >= 3).sum()),
+                three_plus_in_box=int(((in_images >= 3) & (box >= 0)).sum()))
+
+
+def av2_disk(wrappers, root: str, av2_log: dict, model) -> dict:
+    """FSF at AV2's full width served from a prepared tree on disk: the
+    ``offline_av2`` log's frames get single-channel masks
+    (``cli/make_fake_av2.paint_masks``: each GT box's interior points
+    projected by the rig's own geometry at each camera's image timestamp,
+    7 x 7 native pixels a point, farthest box first); ``cli/prepare_av2.py
+    --fusion`` prepares the log (every frame's 96 GT boxes read back, the
+    camera timestamps the nearest); ``cli/test.py --model fsf
+    --eval-protocol av2 --eval`` serves it with the ``av2`` phase's model
+    (the counters zeroed just before and read just after; per request the
+    host's read / mask / input ms, ``gpu_ms``, detections, launches), its
+    feather read back equal to its rows and its metrics finite; one
+    request again, bitwise; every K1, K2 and K3 call of one request held
+    to its plain version. The points' lookups are read from the model's
+    camera module (``points_in_mask_compact``): of the in-box points the
+    rig sees, the share with a hit of their own class must reach
+    ``AV2_DISK_MIN_HIT_SHARE`` and beat the uncompensated chain's; the
+    points in three or more cameras' images are counted."""
+    from fullysparsefusion_tpu_torch.cli import make_fake_av2 as F
+    from fullysparsefusion_tpu_torch.cli import prepare_av2 as P
+    from fullysparsefusion_tpu_torch.cli import test as T
+    from fullysparsefusion_tpu_torch.cli.common import (av2_grid_lidar2img, load_av2_masks,
+                                                        point_batch)
+    from fullysparsefusion_tpu_torch.config import AV2_CLASS_NAMES
+    from fullysparsefusion_tpu_torch.data.av2 import AV2Reader, boxes_to_av2_rows
+    from fullysparsefusion_tpu_torch.data.feather import read_feather
+    from fullysparsefusion_tpu_torch.data.pipelines import collate_scene
+    from fullysparsefusion_tpu_torch.models import camera
+    from fullysparsefusion_tpu_torch.models.camera import CameraData
+
+    t0 = time.perf_counter()
+    device = next(model.parameters()).device
+    rig, base = av2_log["rig"], os.path.join(root, "av2_disk")
+    mask_dir = os.path.join(base, "masks")
+    painted, paint_ms = {}, []
+    for ts, fr in av2_log["frames"].items():
+        t1 = time.perf_counter()
+        t_cams = [P.nearest_stamp(st, ts) for st in av2_log["cam_stamps"]]
+        painted[ts] = F.paint_masks(mask_dir, f"{av2_log['log_id']}_{ts}", fr["points"], fr["boxes"],
+                                    fr["labels"], rig, ts, t_cams, AV2_DISK_RADIUS)
+        paint_ms.append(round((time.perf_counter() - t1) * 1e3, 3))
+    info_path = os.path.join(base, "av2_infos.pkl")
+    t1 = time.perf_counter()
+    infos = P.main(["--av2-root", av2_log["split"], "--out", info_path, "--points-out",
+                    os.path.join(base, "points"), "--fusion"])
+    prepare_s = time.perf_counter() - t1
+    cfg = av2_config()
+    reader = AV2Reader(info_path, base, AV2_CLASS_NAMES, training=False,
+                       point_cloud_range=cfg.fsd.segmentor.point_cloud_range)
+    gt_read = [int(len(reader.sample(i)["gt_labels"])) for i in range(len(infos))]
+    gt_written = [len(fr["labels"]) for fr in av2_log["frames"].values()]
+    if gt_read != gt_written:
+        fail(f"av2_disk: prepare_av2 --fusion read back {gt_read} of {gt_written} GT boxes")
+    for info in infos:
+        for c, cam in enumerate(P.RING_CAMERAS):
+            want = P.nearest_stamp(av2_log["cam_stamps"][c], info["timestamp_ns"])
+            if info["cams"][cam]["timestamp_ns"] != want:
+                fail(f"av2_disk: frame {info['timestamp_ns']} took {cam}'s image "
+                     f"{info['cams'][cam]['timestamp_ns']}, not the nearest {want}")
+
+    lookups = []
+    orig = camera.points_in_mask_compact
+
+    def recorder(xyz, batch_idx, lidar2img, masks, img_h, img_w, k=2):
+        ids, scores = orig(xyz, batch_idx, lidar2img, masks, img_h, img_w, k)
+        lookups.append(dict(xyz=xyz, batch_idx=batch_idx, masks=masks, hw=(img_h, img_w),
+                            ids=ids))
+        return ids, scores
+
+    feather = os.path.join(base, "detections.feather")
+    argv = ["--model", "fsf", "--eval-protocol", "av2", "--info-pkl", info_path, "--data-root",
+            base, "--mask-dir", mask_dir, "--mask-downsample", str(AV2_DISK_DOWNSAMPLE)]
+    torch.cuda.reset_peak_memory_stats()
+    camera.points_in_mask_compact = recorder
+    try:
+        zero(wrappers)
+        res = T.run(cfg, T.parse_args(argv + ["--eval", "--out", feather]), model=model)
+        launches = counts(wrappers)
+    finally:
+        camera.points_in_mask_compact = orig
+    for rec in res["samples"]:
+        if min(rec["launches"][k] for k in AV2_DISK_KERNELS) <= 0:
+            fail(f"av2_disk request {rec['token']}: launches {rec['launches']}")
+        log_line = {k: (round(v, 3) if isinstance(v, float) else v) for k, v in rec.items()}
+        log({"phase": "av2_disk_request", **log_line})
+    for r in res["results"]:
+        if not all(math.isfinite(x) for b in r["boxes"] for x in b + r["scores"]):
+            fail(f"av2_disk: non-finite detections for {r['token']}")
+    rows = [row for r in res["results"] for row in boxes_to_av2_rows(
+        *T.av2_detections(r)[:3], AV2_CLASS_NAMES, r["log_id"], r["timestamp_ns"])]
+    back = read_feather(feather)
+    if not rows or list(back) != list(rows[0]) or not all(
+            back[k].tolist() == [row[k] for row in rows] for k in rows[0]):
+        fail("av2_disk: the feather read back differs from the detections' rows")
+    m = res["metrics"]
+    if not (math.isfinite(m["mAP"]) and math.isfinite(m["CDS"])):
+        fail(f"av2_disk: evaluate_av2 gave mAP {m['mAP']}, CDS {m['CDS']}")
+    again = T.run(cfg, T.parse_args(argv + ["--max-samples", "1", "--out",
+                                            os.path.join(base, "again.feather")]), model=model)
+    if again["results"][0] != res["results"][0]:
+        fail("av2_disk: a repeated request changed its detections")
+
+    hits = []
+    for i, (info, lk) in enumerate(zip(infos, lookups)):
+        ts = info["timestamp_ns"]
+        n = len(reader.sample(i)["points"])
+        front = info["cams"][P.RING_CAMERAS[0]]
+        uncompensated = []
+        for c in range(len(P.RING_CAMERAS)):
+            uncompensated.append(P.build_lidar2img(
+                np.eye(4), np.eye(4), np.linalg.inv(P.se3(rig.ego_R_cam(c), rig.ego_t_cam(c))),
+                rig.intrinsics(c)))
+        grid = (lk["hw"][0] * AV2_DISK_DOWNSAMPLE, lk["hw"][1] * AV2_DISK_DOWNSAMPLE)
+        l2i = av2_grid_lidar2img(np.stack(uncompensated), (front["height_px"], front["width_px"]),
+                                 grid, AV2_DISK_DOWNSAMPLE)
+        with torch.inference_mode():
+            ids_u, _ = orig(lk["xyz"], lk["batch_idx"], torch.as_tensor(l2i, device=device)[None],
+                            lk["masks"], *lk["hw"])
+        hits.append(av2_rig_hits(av2_log, info, av2_log["frames"][ts], painted[ts],
+                                 lk["xyz"][:n].cpu().numpy(), lk["ids"][:n].cpu().numpy(),
+                                 ids_u[:n].cpu().numpy()))
+    seen = sum(h["seen"] for h in hits)
+    share = sum(h["hits"] for h in hits) / seen
+    share_u = sum(h["hits_uncompensated"] for h in hits) / seen
+    if not (share >= AV2_DISK_MIN_HIT_SHARE and share_u < share):
+        fail(f"av2_disk: hit share {share:.4f} (uncompensated {share_u:.4f}) of {seen} points; "
+             f"at least {AV2_DISK_MIN_HIT_SHARE} and above the uncompensated chain's expected")
+
+    s0 = reader.sample(0)
+    front = infos[0]["cams"][P.RING_CAMERAS[0]]
+    planes = load_av2_masks([s0], [(front["height_px"], front["width_px"])], mask_dir,
+                            cfg.num_classes, T.av2_image_size(infos), AV2_DISK_DOWNSAMPLE)
+    batch = collate_scene([s0], cfg.caps.points, cfg.caps.max_gt)
+    stats = av2_check_kernels(model, (point_batch(batch, device),
+                                      CameraData.build(*planes, device=device)),
+                              phase="av2_disk_kernels")
+    per_request = {k: v / len(res["samples"]) for k, v in launches.items()}
+    log({"phase": "av2_disk", "frames": len(infos), "gt_read_fusion": gt_read,
+         "gt_read_plain": av2_log["gt_read_plain"], "gt_written": gt_written,
+         "anno_rows": [len(p["rows"]) for p in painted.values()], "paint_ms": paint_ms,
+         "prepare_seconds": round(prepare_s, 3),
+         **{f"{k}_per_request": [round(r[k], 3) for r in res["samples"]]
+            for k in ("read_ms", "mask_ms", "input_ms", "gpu_ms")},
+         "detections": [r["detections"] for r in res["samples"]],
+         "launches_per_request": per_request, "in_box_points": [h["in_box"] for h in hits],
+         "seen_points": [h["seen"] for h in hits], "hit_share": share,
+         "hit_share_uncompensated": share_u,
+         "points_in_3plus_cameras": [h["three_plus"] for h in hits],
+         "in_box_points_in_3plus_cameras": [h["three_plus_in_box"] for h in hits],
+         "points": [len(fr["points"]) for fr in av2_log["frames"].values()],
+         "mAP": m["mAP"], "CDS": m["CDS"], "kernel_ms": {k: v["ms"] for k, v in stats.items()},
+         "peak_mem_mib": round(torch.cuda.max_memory_allocated() / 2**20, 1),
+         "seconds": round(time.perf_counter() - t0, 3)})
+    del res, again, lookups
+    torch.cuda.empty_cache()
+    return per_request
 
 
 def offline_tools_phase(wrappers, root: str, tree: dict, serve_per_request: dict,
                         av2: dict) -> dict:
     """The offline tools on the card's machine, with the port's own codecs:
     the fixture JPEGs, the mask tool at full HTC width over the nuScenes
-    entry tree and FSF served from its masks, AV2 preparation and export.
-    Returns the mask tool's launches per sample and FSF's per request."""
+    entry tree and FSF served from its masks, AV2 preparation and export,
+    then FSF at AV2's width served from the prepared AV2 tree
+    (``av2_disk``). Returns the mask tool's launches per sample, FSF's per
+    request and ``av2_disk``'s per request."""
     t0 = time.perf_counter()
     with open(os.path.join(OFFLINE_FIXTURES, "manifest.json")) as f:
         manifest = json.load(f)
     offline_jpeg_fixtures(manifest)
     launches = offline_masks(wrappers, tree, root, manifest, serve_per_request)
-    offline_av2(root, manifest, av2)
+    av2_log = offline_av2(root, manifest, av2)
     log({"phase": "offline_tools", "seconds": round(time.perf_counter() - t0, 3)})
+    launches["av2_disk"] = av2_disk(wrappers, root, av2_log, av2.pop("model"))
     return launches
 
 
@@ -3974,7 +4228,8 @@ def main() -> int:
                      export_launches_per_request=exported["fsf"][name],
                      fsd_export_launches_per_request=exported["fsd"][name],
                      mask_tool_launches_per_sample=offline["per_sample"][name],
-                     mask_tool_fsf_launches_per_request=offline["per_request"][name])
+                     mask_tool_fsf_launches_per_request=offline["per_request"][name],
+                     av2_disk_launches_per_request=offline["av2_disk"][name])
         if name == "nms_keep":
             entry["tta"] = nusc["tta"]
         entries.append(entry)

@@ -1,8 +1,14 @@
 """Evaluation / inference entry point (the port's counterpart of the JAX
 package's ``tools/test.py``): run detection over a nuScenes info tree on the
 card (``--cpu``: on the host), write the detections as JSON and, with
-``--eval``, score them (nuScenes mAP / NDS or AV2 AP / CDS). ``--tta`` runs
-the scale × rotation × flip grid and fuses the union by rotated NMS;
+``--eval``, score them (nuScenes mAP / NDS). ``--eval-protocol av2`` serves
+an Argoverse 2 tree instead: the info pickle of ``cli/prepare_av2.py``
+(``--fusion`` for FSF's camera entries) read by ``data/av2.AV2Reader``, the
+single-channel masks of ``--mask-dir`` (``cli/common.load_av2_masks``),
+``--img-h`` / ``--img-w`` by default the ring cameras' size in the pickle,
+the detections written as an AV2 feather (``AV2Reader.format_results``)
+and scored by AV2 AP / CDS. ``--tta`` runs the scale × rotation × flip
+grid and fuses the union by rotated NMS;
 ``--tmpdir`` writes this rank's shard file and merges them on rank 0.
 :func:`run` serves a given config; :func:`main` builds the config from
 ``--tiny`` / ``--synthetic`` (the tiny test config), else from a
@@ -13,6 +19,9 @@ first ``--vis-max`` samples (``utils/visualize.py``; needs matplotlib).
     python -m fullysparsefusion_tpu_torch.cli.test --model fsf --checkpoint CKPT \
         --info-pkl data/nuscenes_infos_val.pkl --data-root data/nuscenes \
         --mask-dir data/masks --out results/dets.json --eval
+    python -m fullysparsefusion_tpu_torch.cli.test --model fsf --eval-protocol av2 \
+        --info-pkl data/av2/av2_infos_val.pkl --data-root data/av2 \
+        --mask-dir data/av2/masks --out results/dets.feather --eval
     python -m fullysparsefusion_tpu_torch.cli.test --synthetic --cpu
 """
 from __future__ import annotations
@@ -21,7 +30,7 @@ import argparse
 import json
 import os
 import time
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -29,6 +38,7 @@ import torch.distributed as dist
 
 from .. import synthetic as S
 from ..config import FSFConfig
+from ..data.av2 import AV2Reader
 from ..data.nuscenes import NuScenesReader
 from ..data.pipelines import collate_scene
 from ..data.tta import fuse_union, run_tta, tta_grid
@@ -38,8 +48,9 @@ from ..models.camera import CameraData
 from ..parallel.eval import merge_shard_results, shard_indices, write_shard_results
 from ..train.checkpoint import load_model_vars
 from ..utils.visualize import dump_bev, dump_camera_assignment
-from .common import (MODELS, READER_POINT_WIDTH, build_model, config_from_args, kernel_launches,
-                     launches_since, load_masks, model_config, point_batch, resolve_device, timed)
+from .common import (AV2_POINT_WIDTH, MODELS, READER_POINT_WIDTH, build_model, config_from_args,
+                     kernel_launches, launches_since, load_av2_masks, load_masks, model_config,
+                     point_batch, resolve_device, timed)
 
 
 def parse_args(argv=None):
@@ -48,18 +59,18 @@ def parse_args(argv=None):
     p.add_argument("--checkpoint", help="a training checkpoint (cli.train's step_*.pt)")
     p.add_argument("--info-pkl")
     p.add_argument("--data-root")
-    p.add_argument("--out", default="results/detections.json")
+    p.add_argument("--out", help="results/detections.json (AV2: results/detections.feather)")
     p.add_argument("--synthetic", action="store_true")
     p.add_argument("--eval", action="store_true", help="run the built-in evaluator")
     p.add_argument("--eval-protocol", default="nuscenes", choices=["nuscenes", "av2"],
-                   help="nuScenes mAP/NDS or AV2 AP/CDS")
+                   help="a nuScenes tree scored by mAP/NDS, or an AV2 tree by AP/CDS")
     p.add_argument("--max-samples", type=int, default=0)
     p.add_argument("--model", default="fsd", choices=MODELS)
     p.add_argument("--tiny", action="store_true", help="the tiny test config (CI)")
     p.add_argument("--mask-dir", help="pre-computed 2D instance masks (FSF)")
     p.add_argument("--mask-downsample", type=int, default=2)
-    p.add_argument("--img-h", type=int, default=900)
-    p.add_argument("--img-w", type=int, default=1600)
+    p.add_argument("--img-h", type=int, help="mask grid height (900; AV2: the ring cameras')")
+    p.add_argument("--img-w", type=int, help="mask grid width (1600; AV2: the ring cameras')")
     p.add_argument("--tta", action="store_true",
                    help="flip/rotate/scale TTA fused with rotated NMS")
     p.add_argument("--tta-rotations", default="0", help="comma-separated yaw rotations (rad)")
@@ -83,15 +94,33 @@ def _synthetic(cfg: FSFConfig, args, device) -> Dict:
     return out
 
 
-def run(cfg: FSFConfig, args) -> Dict:
-    """Serve ``cfg`` over the tree ``args`` name. Returns the ``model``, the
-    JSON ``results`` (token, boxes, scores, labels per sample), a record per
-    sample of this rank (``samples``: the host ms of ``read`` (the reader),
-    ``collate``, ``masks`` (PNG decode and pack) and ``input`` (conversion
-    and copy to the device), the device ms ``gpu_ms`` of forward +
-    ``get_bboxes`` (summed over the TTA variants), the ``detections``, the
-    TTA ``union``'s size and the kernels' ``launches``) and, with
-    ``--eval``, the ``metrics``."""
+def av2_image_size(infos) -> Tuple[int, int]:
+    """The (h, w) that every frame's ring cameras but the front one share
+    (``cams`` of ``prepare_av2 --fusion``); raises when they differ or the
+    pickle has no camera entries."""
+    sizes = set()
+    for info in infos:
+        if "cams" not in info:
+            raise ValueError(f"frame {info['log_id']}_{info['timestamp_ns']} has no camera "
+                             "entries (prepare it with prepare_av2 --fusion)")
+        sizes |= {(c["height_px"], c["width_px"]) for name, c in info["cams"].items()
+                  if name != info["cam_names"][0]}
+    if len(sizes) != 1:
+        raise ValueError(f"the ring cameras' sizes differ: {sorted(sizes)}; pass --img-h/--img-w")
+    return sizes.pop()
+
+
+def run(cfg: FSFConfig, args, model=None) -> Dict:
+    """Serve ``cfg`` over the tree ``args`` name (``model``: an already
+    built model to serve instead of one from seed 0). Returns the ``model``,
+    the ``results`` (token, boxes, scores, labels per sample; AV2 adds
+    ``log_id`` and ``timestamp_ns``), a record per sample of this rank
+    (``samples``: the host ms of ``read`` (the reader), ``collate``,
+    ``masks`` (PNG decode and pack) and ``input`` (conversion and copy to
+    the device), the device ms ``gpu_ms`` of forward + ``get_bboxes``
+    (summed over the TTA variants), the ``detections``, the TTA
+    ``union``'s size and the kernels' ``launches``) and, with ``--eval``,
+    the ``metrics``."""
     device = resolve_device(args.cpu)
     if args.synthetic:
         return _synthetic(cfg, args, device)
@@ -101,11 +130,44 @@ def run(cfg: FSFConfig, args) -> Dict:
     if use_fsf and not args.mask_dir:
         raise ValueError("--mask-dir is required for --model fsf")
     fsd_cfg = cfg.fsd
-    reader = NuScenesReader(info_path=args.info_pkl, data_root=args.data_root,
-                            class_names=fsd_cfg.class_names, training=False, with_cbgs=False)
-    model = build_model(args.model, model_config(cfg, args.model, READER_POINT_WIDTH), 0, device)
+    av2 = args.eval_protocol == "av2"
+    if av2:
+        reader = AV2Reader(info_path=args.info_pkl, data_root=args.data_root,
+                           class_names=fsd_cfg.class_names, training=False,
+                           point_cloud_range=fsd_cfg.segmentor.point_cloud_range)
+        point_width = AV2_POINT_WIDTH
+    else:
+        reader = NuScenesReader(info_path=args.info_pkl, data_root=args.data_root,
+                                class_names=fsd_cfg.class_names, training=False, with_cbgs=False)
+        point_width = READER_POINT_WIDTH
+    img_hw = (args.img_h, args.img_w)
+    if use_fsf and None in img_hw:
+        default = av2_image_size(reader.infos) if av2 else (900, 1600)
+        img_hw = (args.img_h or default[0], args.img_w or default[1])
+    if model is None:
+        model = build_model(args.model, model_config(cfg, args.model, point_width), 0, device)
     if args.checkpoint:
         load_model_vars(args.checkpoint, model)
+
+    def read(i):
+        """(sample ``i`` in eval form with its ``token``, the reader's ms)."""
+        if not av2:
+            read0 = reader.host_ms["read"]
+            s = reader.sample(i, augment=False)
+            return s, reader.host_ms["read"] - read0
+        t0 = time.perf_counter()
+        s = reader.sample(i, augment=False)
+        ms = (time.perf_counter() - t0) * 1e3
+        return dict(s, token=f"{s['log_id']}_{s['timestamp_ns']}"), ms
+
+    def masks(i, s):
+        if not av2:
+            return load_masks([s], args.mask_dir, fsd_cfg.num_classes, img_hw,
+                              args.mask_downsample)
+        info = reader.infos[i]
+        front = info["cams"][info["cam_names"][0]]
+        return load_av2_masks([s], [(front["height_px"], front["width_px"])], args.mask_dir,
+                              fsd_cfg.num_classes, img_hw, args.mask_downsample)
 
     def collate(s):
         return collate_scene([s], cfg.caps.points, cfg.caps.max_gt)
@@ -168,17 +230,15 @@ def run(cfg: FSFConfig, args) -> Dict:
     t_all = time.time()
     for i in own.tolist():
         before = kernel_launches()
-        read0 = reader.host_ms["read"]
-        s = reader.sample(i, augment=False)
-        rec = {"token": s["token"], "read_ms": reader.host_ms["read"] - read0}
+        s, read_ms = read(i)
+        rec = {"token": s["token"], "read_ms": read_ms}
         t0 = time.perf_counter()
         batch = collate(s)
         rec["collate_ms"] = (time.perf_counter() - t0) * 1e3
         cam = planes = None
         if use_fsf:
             t0 = time.perf_counter()
-            planes = load_masks([s], args.mask_dir, fsd_cfg.num_classes, (args.img_h, args.img_w),
-                                args.mask_downsample)
+            planes = masks(i, s)
             rec["mask_ms"] = (time.perf_counter() - t0) * 1e3
             t0 = time.perf_counter()
             cam = CameraData.build(*planes, device=device)
@@ -191,6 +251,8 @@ def run(cfg: FSFConfig, args) -> Dict:
         per_sample.append(rec)
         results.append(dict(token=s["token"], boxes=boxes.tolist(), scores=scores.tolist(),
                             labels=labels.tolist()))
+        if av2:
+            results[-1].update(log_id=s["log_id"], timestamp_ns=int(s["timestamp_ns"]))
         if args.eval:
             # the mmdet3d velocity heuristic gives the prediction attributes;
             # AAE joins NDS only when the pickles carry GT attribute ids
@@ -210,14 +272,28 @@ def run(cfg: FSFConfig, args) -> Dict:
             if dist.get_rank() != 0:
                 return dict(out, results=results)
         results = merge_shard_results(args.tmpdir)
-    os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
-    with open(args.out, "w") as f:
-        json.dump(results, f)
-    out.update(results=results, out=args.out)
+    out_path = args.out or f"results/detections.{'feather' if av2 else 'json'}"
+    os.makedirs(os.path.dirname(os.path.abspath(out_path)), exist_ok=True)
+    if av2:
+        reader.format_results([av2_detections(r) for r in results], out_path)
+    else:
+        with open(out_path, "w") as f:
+            json.dump(results, f)
+    out.update(results=results, out=out_path)
     if args.eval:
-        evaluate = evaluate_av2 if args.eval_protocol == "av2" else evaluate_detections
+        evaluate = evaluate_av2 if av2 else evaluate_detections
         out["metrics"] = evaluate(records, fsd_cfg.num_classes, fsd_cfg.class_names)
     return out
+
+
+def av2_detections(result: Dict) -> tuple:
+    """One result of :func:`run` as ``AV2Reader.format_results`` takes it:
+    (boxes [N, 7] f32, scores f32, labels, log id, timestamp), the f32
+    values the model gave."""
+    boxes = np.asarray(result["boxes"], np.float32).reshape(len(result["scores"]), -1) \
+        if result["scores"] else np.zeros((0, 7), np.float32)
+    return (boxes, np.asarray(result["scores"], np.float32), np.asarray(result["labels"]),
+            result["log_id"], result["timestamp_ns"])
 
 
 def main(argv: Optional[list] = None) -> None:

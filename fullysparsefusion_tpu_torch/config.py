@@ -12,7 +12,7 @@ only: they select a TPU dispatch in the JAX package and mean nothing here
 """
 from __future__ import annotations
 
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace
 from typing import Optional, Tuple
 
 NUSC_CLASS_NAMES = (
@@ -312,6 +312,29 @@ def tiny_fsf_config(**overrides) -> FSFConfig:
     )
     kw.update(overrides)
     return FSFConfig(**kw)
+
+
+def tiny_av2_fsf_config() -> FSFConfig:
+    """The tiny FSF config at Argoverse 2's shape, for CPU runs of AV2
+    trees (the port's own; the JAX package's AV2 tests build the same from
+    its ``tiny_fsf_config`` and ``av2_fsf_config``): 26 classes in AV2's
+    six groups, code size 8 without the velocity attribute, 7 cameras,
+    4-dim points, AV2's cluster voxel sizes, connected distances, score
+    thresholds and refinement distances."""
+    n = len(AV2_CLASS_NAMES)
+    base, av2 = tiny_fsf_config(), av2_fsf_config().fsd
+
+    def head(h):
+        return replace(h, num_classes=n, code_size=8,
+                       common_attrs=tuple(a for a in h.common_attrs if a[0] != "vel"))
+
+    seg = replace(base.fsd.segmentor, num_classes=n, point_dim=4)
+    fsd = replace(base.fsd, class_names=AV2_CLASS_NAMES, group_names=AV2_GROUPS, segmentor=seg,
+                  head=head(base.fsd.head), score_thresh=av2.score_thresh,
+                  cluster_voxel_sizes=av2.cluster_voxel_sizes,
+                  connected_dists=av2.connected_dists)
+    return replace(base, fsd=fsd, num_cams=7, frustum_head=head(base.frustum_head),
+                   refined_head=head(base.refined_head), refine_max_dist=(1.0,) * n)
 
 
 def tiny_fsd_config(**overrides) -> FSDConfig:

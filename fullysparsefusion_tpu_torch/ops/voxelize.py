@@ -12,11 +12,15 @@ from .segment import SegmentInfo, segment_mean, unique_segments
 def voxel_coords(xyz: torch.Tensor, voxel_size: Sequence[float],
                  pc_range: Sequence[float]) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-point integer voxel coords (x, y, z) and in-range mask:
-    ``floor((p - range_min) / voxel_size)``, range [min, max)."""
+    ``floor((p - range_min) / voxel_size)``, range [min, max), with the
+    division as the JAX package's compiled graph does it: XLA folds a
+    division by the constant voxel size into a product with its reciprocal
+    in the same dtype. The two differ for points exactly on a voxel edge,
+    which float16 sweeps (Argoverse 2's) put there."""
     vs = torch.tensor(voxel_size, dtype=xyz.dtype, device=xyz.device)
     lo = torch.tensor(pc_range[:3], dtype=xyz.dtype, device=xyz.device)
     hi = torch.tensor(pc_range[3:6], dtype=xyz.dtype, device=xyz.device)
-    coords = torch.floor((xyz - lo) / vs).to(torch.int32)
+    coords = torch.floor((xyz - lo) * (1.0 / vs)).to(torch.int32)
     in_range = ((xyz >= lo) & (xyz < hi)).all(dim=-1)
     return coords, in_range
 

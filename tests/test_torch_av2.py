@@ -40,12 +40,15 @@ xdist's ``--dist loadfile`` (files with more tests first) queues them behind
 ``tests/test_train.py``, the Tier-1 run's longest file.
 """
 import dataclasses
+import hashlib
+import os
 import pickle
 
 import jax
 import numpy as np
 import pytest
 import torch
+from filelock import FileLock
 
 from fixtures import make_camera_data, make_scene, with_noaug_channels
 from fullysparsefusion_tpu import config as jcfg
@@ -123,6 +126,9 @@ def test_tiny_av2_config_matches_jax():
     for g in (False, True):
         assert dataclasses.asdict(tiny_av2_config(tcfg, g)) == \
             dataclasses.asdict(tiny_av2_config(jcfg, g))
+    # the port's own tiny AV2 config (``cli/test.py --tiny --eval-protocol av2``)
+    assert dataclasses.asdict(tcfg.tiny_av2_fsf_config()) == \
+        dataclasses.asdict(tiny_av2_config(jcfg))
 
 
 def _stage_counts(vox, sc, xp, pb, cfg, caps):
@@ -146,19 +152,24 @@ def _stage_counts(vox, sc, xp, pb, cfg, caps):
 # --- the tiny AV2-shaped FSF ---------------------------------------------------
 
 
-def _run_jax():
+def _jax_inputs():
+    """The JAX run's inputs: configs, scene, cameras and the numpy weights."""
     cfg = tiny_av2_config(jcfg)
     pb, gt = make_scene(seed=0, n_cap=cfg.caps.points, max_gt=cfg.caps.max_gt,
                         num_classes=cfg.num_classes, point_dim=4)
     cam = make_camera_data(pb, gt, num_cams=cfg.num_cams, num_classes=cfg.num_classes)
     pb = with_noaug_channels(pb)
     model = JFSF(cfg=cfg)
-    train_model = JFSF(cfg=tiny_av2_config(jcfg, gather_only=True))
     shapes = jax.eval_shape(
         lambda k: model.init(k, pb, cam, 2, None, None, False,
                              method=lambda m, *a, **kw: m(*a, **kw)),
         jax.random.key(0))
-    jvars = _numpy_variables(shapes)
+    return cfg, pb, gt, cam, _numpy_variables(shapes)
+
+
+def _run_jax(cfg, pb, gt, cam, jvars):
+    model = JFSF(cfg=cfg)
+    train_model = JFSF(cfg=tiny_av2_config(jcfg, gather_only=True))
 
     def run(v):
         out = model.apply(v, pb, cam, 2, gt, gt, False)
@@ -167,14 +178,42 @@ def _run_jax():
                                     mutable=["batch_stats"])
         return out, det, tout
 
-    out, det, tout = jax.tree_util.tree_map(
+    return jax.tree_util.tree_map(
         np.asarray, jax.jit(run, compiler_options=FAST_COMPILE)(jvars))
-    return jvars, out, det, tout
+
+
+def session_cached(tmp_path_factory, name, fn, *inputs):
+    """``fn(*inputs)`` (NumPy results) computed once per test session: the
+    result is pickled under the session's shared temporary root (the parent
+    of the xdist worker's base temp; the base temp itself without xdist),
+    keyed by a digest of the inputs' arrays and reprs, and written under a
+    file lock, so that the workers that import one reference share it."""
+    base = tmp_path_factory.getbasetemp()
+    root = base.parent if os.environ.get("PYTEST_XDIST_WORKER") else base
+    digest = hashlib.sha256(jax.__version__.encode())
+    digest.update(repr(jax.tree_util.tree_structure(inputs)).encode())
+    for leaf in jax.tree_util.tree_leaves(inputs):
+        a = np.asarray(leaf) if isinstance(leaf, (np.ndarray, jax.Array)) else None
+        digest.update(repr(leaf).encode() if a is None else
+                      f"{a.dtype}{a.shape}".encode() + np.ascontiguousarray(a).tobytes())
+    path = root / f"{name}-{digest.hexdigest()[:24]}.pkl"
+    with FileLock(str(path) + ".lock"):
+        if path.exists():
+            with open(path, "rb") as f:
+                return pickle.load(f)
+        result = fn(*inputs)
+        tmp = path.with_suffix(".part")
+        with open(tmp, "wb") as f:
+            pickle.dump(result, f)
+        os.replace(tmp, path)
+        return result
 
 
 @pytest.fixture(scope="module")
-def parity():
-    jvars, jout, jdet, jtout = _run_jax()
+def parity(tmp_path_factory):
+    inputs = _jax_inputs()
+    jvars = inputs[-1]
+    jout, jdet, jtout = session_cached(tmp_path_factory, "av2_parity", _run_jax, *inputs)
     cfg = tiny_av2_config(tcfg)
     sc = S.make_scene_arrays(seed=0, n_cap=cfg.caps.points, max_gt=cfg.caps.max_gt,
                              num_classes=cfg.num_classes, point_dim=4)

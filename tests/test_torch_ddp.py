@@ -33,7 +33,9 @@ layer ``F32_TOL``.
 ``test_torch_ddp_grads.py`` holds more tests of this module's helpers and
 fixtures, at its tolerances, in files of at most five tests, so that xdist's
 ``--dist loadfile`` (files with more tests first) queues them behind
-``tests/test_train.py``, the Tier-1 run's longest file.
+``tests/test_train.py``, the Tier-1 run's longest file. The JAX step's
+results are computed once per test session and shared by the two files
+(``test_torch_av2.session_cached``); the port's ranks run in each.
 """
 import jax
 import jax.numpy as jnp
@@ -53,6 +55,7 @@ from fullysparsefusion_tpu_torch import synthetic as S
 from fullysparsefusion_tpu_torch.weights import from_jax_variables
 from test_torch_ddp_port import (SCENE_SEEDS, bn_inputs, bn_rank, case_scenes, fsf_step_rank,
                                  rank_config, run_jobs, scene_arrays, spawn, torch_one_thread)
+from test_torch_av2 import session_cached
 from test_torch_fsf import FAST_COMPILE, _numpy_variables
 
 LOSS_TOL = 4e-3
@@ -115,14 +118,19 @@ def parity(mesh2, tmp_path_factory):
         return (loss, jax.lax.pmean(losses, "dp"), grads,
                 jax.lax.pmean(new_stats, "dp"))
 
-    step = jax.jit(shard_map(local, mesh=mesh2,
-                             in_specs=(P(), P(), P("dp"), P("dp"), P("dp"), P()),
-                             out_specs=(P(), P(), P(), P())), compiler_options=FAST_COMPILE)
-    jres = {}
-    for name, (det_weight, all_invalid) in CASES.items():
-        out = step(jvars["params"], jvars["batch_stats"],
-                   *sharded_layout(case_scenes(cfg, all_invalid)), jnp.float32(det_weight))
-        jres[name] = jax.tree_util.tree_map(np.asarray, out)
+    def run_cases(variables, layouts):
+        step = jax.jit(shard_map(local, mesh=mesh2,
+                                 in_specs=(P(), P(), P("dp"), P("dp"), P("dp"), P()),
+                                 out_specs=(P(), P(), P(), P())), compiler_options=FAST_COMPILE)
+        return {name: jax.tree_util.tree_map(np.asarray, step(
+                    variables["params"], variables["batch_stats"], *layout,
+                    jnp.float32(CASES[name][0])))
+                for name, layout in layouts.items()}
+
+    layouts = {name: sharded_layout(case_scenes(cfg, all_invalid))
+               for name, (_, all_invalid) in CASES.items()}
+    # the JAX half once per session: test_torch_ddp_grads.py uses it too
+    jres = session_cached(tmp_path_factory, "ddp_parity", run_cases, jvars, layouts)
 
     state = {k: v.numpy() for k, v in from_jax_variables(jvars).items()}
     cases = [(det_weight, True, case_scenes(cfg, all_invalid))
