@@ -206,6 +206,33 @@ Phases, each of which ends the script with a non-zero exit on failure:
    model's camera module) holds their own class must reach 0.95 and beat
    the uncompensated chain's; the points in three or more cameras'
    images are counted (the lookup keeps two).
+19. multihost: the ``--multihost`` entry points over the nuScenes entry
+   tree at the CLIs' own full-width config (``nusc_fsf_config``): ``python
+   -m torch.distributed.run --standalone --nproc-per-node 1 -m
+   fullysparsefusion_tpu_torch.cli.train --multihost`` for 3 steps (NCCL
+   through ``env://``), its checkpoint's parameters and optimizer state and
+   its log (rank 0's launches of every step in it, the same on every step,
+   K1, K2 and ``dw_per_tap`` each launched) bitwise those of
+   ``cli.train.run`` in this process; then ``tools/launch_test_torch.sh``
+   (``cli/test.py --multihost --tmpdir``, one rank a card) serving that
+   checkpoint with ``--eval``: one shard file, the merged JSON byte for
+   byte, the metrics and the launches of rank 0's summary line (summed
+   over the ranks; K1, K2 and K3 each launched) those of ``cli.test.run``
+   in this process. Both exit codes are checked. The kernels line's
+   ``multihost_*`` launches are the launched jobs' own.
+20. descent: ``cli/train_descent.py`` at full width, 120 AdamW steps (lr
+   1e-4 over 120 steps, no lr multipliers) of FSF at
+   ``config.bench_fsf_config(1)`` cycling the JAX tool's pool of four
+   bench-scale scenes (seeds 101, 118, 135, 152), the counters zeroed just
+   before and read just after: every loss finite, the last below the
+   first and the mean of the last 20 below the first 20's, every step after
+   the third within 2 % of the third's peak allocated MiB, the launches 26
+   / 1 / 0 / 13 (K1, K2, K3, ``dw_per_tap``) on every step; the slowest
+   step and optimizer phase reported; then one more step's backward K1 and
+   ``dw_per_tap`` calls held to their plain versions and timed. The
+   artifact goes to ``--descent-out`` (default: a temporary directory).
+
+    python3 chip_smoke.py --descent-out docs/h100_fsf_training_descent.json
 
 The last lines are a ``{"kernels": [...]}`` JSON object, the card's name and
 power limit from ``nvidia-smi``, and ``{"ok": true, "device": {...}}``.
@@ -234,13 +261,6 @@ PEAK_BF16_FLOPS = 989e12
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 
-# bench-scale capacities (the JAX package's bench.py, batch 1)
-BENCH_CAPS = dict(
-    points=131072, voxels=57344, prevox=65536, fg_per_group=4096,
-    cluster_voxels_per_group=1024, clusters=1024, max_gt=128,
-    frustum_points=16384, frustum_objects=256, roi_points=32768, max_roi_points=512,
-)
-BENCH_STAGE_CAPS = (57344, 40960, 24576, 8192, 2560)
 REQUEST_SEEDS = (0, 1, 2, 0)
 
 # K1 tolerance: bf16 products are exact in f32, so kernel and plain version
@@ -427,11 +447,11 @@ def small_reference_check(device="cuda"):
 
 
 def bench_config():
-    from fullysparsefusion_tpu_torch.config import (
-        Capacities, FSDConfig, FSFConfig, VoteSegmentorConfig)
+    """Full-width nuScenes FSF at the JAX package bench's capacities, batch 1
+    (``config.bench_fsf_config``)."""
+    from fullysparsefusion_tpu_torch.config import bench_fsf_config
 
-    seg = VoteSegmentorConfig(unet_stage_capacities=BENCH_STAGE_CAPS)
-    return FSFConfig(fsd=FSDConfig(caps=Capacities(**BENCH_CAPS), segmentor=seg))
+    return bench_fsf_config(1)
 
 
 def bench_scene(seed: int, cfg):
@@ -1517,11 +1537,11 @@ FSD_MUST_TRAIN = ("segmentor",) + tuple(f"query_branch.bbox_head.SeparateHead_{t
 def fsd_config():
     """Full-width multi-task FSD: the ``FSDConfig`` defaults (the nuScenes
     widths) with one task per class group, at the bench capacities."""
-    from fullysparsefusion_tpu_torch.config import (
-        NUSC_GROUPS, Capacities, FSDConfig, VoteSegmentorConfig)
+    from fullysparsefusion_tpu_torch.config import NUSC_GROUPS, FSDConfig, VoteSegmentorConfig
 
-    seg = VoteSegmentorConfig(unet_stage_capacities=BENCH_STAGE_CAPS)
-    return FSDConfig(tasks=NUSC_GROUPS, caps=Capacities(**BENCH_CAPS), segmentor=seg)
+    bench = bench_config().fsd
+    seg = VoteSegmentorConfig(unet_stage_capacities=bench.segmentor.unet_stage_capacities)
+    return FSDConfig(tasks=NUSC_GROUPS, caps=bench.caps, segmentor=seg)
 
 
 def fsd_scene(seed: int, cfg, device="cuda"):
@@ -1868,10 +1888,11 @@ def two_stage_config():
     """Full-width two-stage FSD: the ``FSDConfig`` defaults (the nuScenes
     widths, one task of all ten classes, which the RCNN's proposals need)
     at the bench capacities."""
-    from fullysparsefusion_tpu_torch.config import Capacities, FSDConfig, VoteSegmentorConfig
+    from fullysparsefusion_tpu_torch.config import FSDConfig, VoteSegmentorConfig
 
-    seg = VoteSegmentorConfig(unet_stage_capacities=BENCH_STAGE_CAPS)
-    return FSDConfig(tasks=None, caps=Capacities(**BENCH_CAPS), segmentor=seg)
+    bench = bench_config().fsd
+    seg = VoteSegmentorConfig(unet_stage_capacities=bench.segmentor.unet_stage_capacities)
+    return FSDConfig(tasks=None, caps=bench.caps, segmentor=seg)
 
 
 def small_two_stage_reference_check(device="cuda"):
@@ -2107,7 +2128,7 @@ def sst_inputs(cfg, device="cuda"):
     pb, _ = fsd_scene(0, cfg, device)
     r = cfg.segmentor.point_cloud_range
     size = ((r[3] - r[0]) / 512, (r[4] - r[1]) / 512, r[5] - r[2])
-    cap = BENCH_CAPS["voxels"]
+    cap = bench_config().fsd.caps.voxels
     seg, _, batch, coords = voxelize_points(pb.xyz, pb.batch_idx, pb.valid, size, r, cap)
     feats = segment_mean(pb.points, seg.seg_id, cap, counts=seg.counts)
     return feats, coords, batch, seg.seg_valid, int(seg.num_segments)
@@ -3076,7 +3097,7 @@ def interop_config():
     """``load_fsf_config`` on the reconstructed nuScenes file, field by field
     against ``nusc_fsf_config()``; the file's config at the bench
     capacities is then ``bench_config()``, which it returns."""
-    from fullysparsefusion_tpu_torch.config import Capacities, nusc_fsf_config
+    from fullysparsefusion_tpu_torch.config import nusc_fsf_config
     from fullysparsefusion_tpu_torch.config_compat import load_fsf_config
 
     t0 = time.perf_counter()
@@ -3085,11 +3106,13 @@ def interop_config():
     if diffs:
         log({"phase": "interop_config", "differing_fields": diffs})
         fail(f"{REF_CONFIG} differs from nusc_fsf_config() in {len(diffs)} fields")
-    bench = load_fsf_config(REF_CONFIG, Capacities(**BENCH_CAPS))
+    want = bench_config()
+    bench = load_fsf_config(REF_CONFIG, want.fsd.caps)
     bench = dataclasses.replace(bench, fsd=dataclasses.replace(
-        bench.fsd, segmentor=dataclasses.replace(bench.fsd.segmentor,
-                                                 unet_stage_capacities=BENCH_STAGE_CAPS)))
-    if bench != bench_config():
+        bench.fsd, segmentor=dataclasses.replace(
+            bench.fsd.segmentor,
+            unet_stage_capacities=want.fsd.segmentor.unet_stage_capacities)))
+    if bench != want:
         fail("the config file at the bench capacities is not bench_config()")
     log({"phase": "interop_config", "file": os.path.relpath(REF_CONFIG),
          "fields_held": len(list(_leaf_fields(dataclasses.asdict(cfg)))),
@@ -4086,6 +4109,221 @@ def offline_tools_phase(wrappers, root: str, tree: dict, serve_per_request: dict
     return launches
 
 
+# -- the training descent and the multi-node entry points ----------------------------------
+
+# the JAX package's tools/train_descent.py defaults
+DESCENT_STEPS, DESCENT_SCENES, DESCENT_LOG_EVERY = 120, 4, 20
+# the first and last steps whose mean losses must fall
+DESCENT_WINDOW = 20
+# every step after the third within 2 % of the third's peak allocated MiB
+DESCENT_MEM_STEP, DESCENT_MEM_RTOL = 3, 0.02
+# launches per full-width FSF train step: K1 13 forward + 13 d_feats, K2 once,
+# dw_per_tap 13, no decode
+DESCENT_LAUNCHES = {"gather_conv": 26, "ccl_roots": 1, "nms_keep": 0, "dw_per_tap": 13}
+MULTIHOST_STEPS = 3
+
+
+def descent_phase(wrappers, out_path: str) -> dict:
+    """``cli/train_descent.py`` at full width on the card: 120 AdamW steps
+    (lr 1e-4, no lr multipliers) of FSF at ``bench_fsf_config(1)`` cycling
+    the JAX tool's pool of four bench-scale scenes, the counters zeroed just
+    before and read just after, the artifact written to ``out_path``. Every
+    loss must be finite, the last step's loss below the first's and the mean
+    of the last 20 below that of the first 20, every step after the third
+    within 2 % of the third's peak allocated MiB, and every step's launches
+    ``DESCENT_LAUNCHES``. Then one more step's backward K1 and
+    ``dw_per_tap`` calls are held to their plain versions
+    (``check_train_kernels``). Returns the launches per step."""
+    from fullysparsefusion_tpu_torch.cli import train_descent as D
+
+    t0 = time.perf_counter()
+    zero(wrappers)
+    res = D.run(D.parse_args(["--steps", str(DESCENT_STEPS), "--scenes", str(DESCENT_SCENES),
+                              "--log-every", str(DESCENT_LOG_EVERY), "--out", out_path]))
+    launches = counts(wrappers)
+    art, steps = res["artifact"], res["artifact"]["per_step"]
+    losses = [r["loss"] for r in steps]
+    if not all(math.isfinite(v) for v in losses):
+        fail(f"descent: non-finite loss at steps {[r['step'] for r in steps if not math.isfinite(r['loss'])]}")
+    first = sum(losses[:DESCENT_WINDOW]) / DESCENT_WINDOW
+    last = sum(losses[-DESCENT_WINDOW:]) / DESCENT_WINDOW
+    if not (art["loss_last"] < art["loss_first"] and last < first):
+        fail(f"descent: the loss did not fall: {art['loss_first']} -> {art['loss_last']}, "
+             f"mean of the first {DESCENT_WINDOW} {first}, of the last {last}")
+    ref = steps[DESCENT_MEM_STEP - 1]["peak_mib"]
+    off = [(r["step"], round(r["peak_mib"], 1)) for r in steps[DESCENT_MEM_STEP:]
+           if abs(r["peak_mib"] - ref) > DESCENT_MEM_RTOL * ref]
+    if off:
+        fail(f"descent: peak MiB of steps {off[:8]} off step {DESCENT_MEM_STEP}'s {ref:.1f} by "
+             f"more than {DESCENT_MEM_RTOL:.0%}")
+    bad = [(r["step"], r["launches"]) for r in steps if r["launches"] != DESCENT_LAUNCHES]
+    if bad or launches != {k: v * DESCENT_STEPS for k, v in DESCENT_LAUNCHES.items()}:
+        fail(f"descent: launches {bad[:4]} (expected {DESCENT_LAUNCHES} every step; total "
+             f"{launches})")
+    opt_ms = [r["optimizer_ms"] for r in steps]
+    peaks = [r["peak_mib"] for r in steps]
+    log({"phase": "descent", "steps": DESCENT_STEPS, "scenes": DESCENT_SCENES,
+         "config": art["config"], "parameters": art["parameters"],
+         "loss_first": art["loss_first"], "loss_last": art["loss_last"],
+         f"loss_mean_first_{DESCENT_WINDOW}": first, f"loss_mean_last_{DESCENT_WINDOW}": last,
+         "sec_per_step_steady": art["sec_per_step_steady"],
+         "mean_ms": {k: round(sum(r[k] for r in steps[1:]) / (DESCENT_STEPS - 1), 3)
+                     for k in ("forward_ms", "backward_ms", "optimizer_ms", "step_ms")},
+         "peak_mib": {"step3": round(ref, 1), "min_after": round(min(peaks[DESCENT_MEM_STEP:]), 1),
+                      "max_after": round(max(peaks[DESCENT_MEM_STEP:]), 1),
+                      "per_scene": [round(v, 1) for v in peaks[DESCENT_MEM_STEP:
+                                                               DESCENT_MEM_STEP + DESCENT_SCENES]]},
+         "reserved_mib": {"first": round(steps[0]["reserved_mib"], 1),
+                          "last": round(steps[-1]["reserved_mib"], 1)},
+         "slowest_step": art["slowest_step"], "slowest_optimizer": art["slowest_optimizer"],
+         "optimizer_ms_median": round(sorted(opt_ms)[len(opt_ms) // 2], 3),
+         "optimizer_ms_first_8": [round(v, 3) for v in opt_ms[:8]],
+         "launches_per_step": DESCENT_LAUNCHES, "card": art["card"],
+         "artifact": os.path.basename(out_path),
+         "seconds": round(time.perf_counter() - t0, 3)})
+    for entry in art["log"]:
+        log({"phase": "descent_log", **entry})
+    pool = res["pool"]
+    stats = check_train_kernels(res["model"], res["opt"], pool[DESCENT_STEPS % len(pool)],
+                                DESCENT_STEPS, phase="descent_kernel_calls")
+    log({"phase": "descent_kernels", "gather_conv_bwd_ms": round(stats["gather_conv_bwd"]["ms"], 4),
+         "gather_conv_bwd_max_abs_err": stats["gather_conv_bwd"]["err"],
+         "dw_per_tap_ms": round(stats["dw_per_tap"]["ms"], 4),
+         "dw_per_tap_max_abs_err": stats["dw_per_tap"]["max_abs_err"]})
+    del res, pool
+    torch.cuda.empty_cache()
+    return dict(DESCENT_LAUNCHES)
+
+
+def torchrun(argv: list, what: str, env=None, timeout: float = 900.0) -> str:
+    """``argv`` (a ``torch.distributed.run`` command or a launch script) in
+    its own process group from the repository root; every process of the
+    group is ended if it outlasts ``timeout``. Fails on a non-zero exit;
+    returns the standard output."""
+    import signal
+
+    proc = subprocess.Popen(argv, cwd=REPO_ROOT, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True, start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        fail(f"{what}: still running after {timeout} s")
+    if proc.returncode != 0:
+        fail(f"{what}: exit {proc.returncode}\n{out[-2000:]}\n{err[-4000:]}")
+    return out
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def multihost_phase(tree: dict, root: str) -> dict:
+    """The ``--multihost`` entry points on the card over the nuScenes entry
+    tree, at the CLIs' own full-width config: ``cli/train.py --multihost``
+    under ``python -m torch.distributed.run --standalone --nproc-per-node 1``
+    (NCCL through ``env://``) for 3 steps, its checkpoint's parameters and
+    optimizer state and its log (rank 0's launches of each step included)
+    bitwise those of the same run through ``cli/train.py`` in this process;
+    then ``tools/launch_test_torch.sh`` (``--multihost --tmpdir``, one rank
+    per card) serving that checkpoint, its JSON byte for byte, its metrics
+    and its launches (rank 0's summary line, summed over the ranks) those
+    of ``cli/test.py`` in this process. Returns the launched jobs' launches:
+    per step (``train``, read from the job's log) and per request
+    (``test``)."""
+    from fullysparsefusion_tpu_torch.cli import test as T
+    from fullysparsefusion_tpu_torch.cli import train as TR
+    from fullysparsefusion_tpu_torch.cli.common import config_from_args
+    from fullysparsefusion_tpu_torch.train import checkpoint as ckpt
+
+    t0 = time.perf_counter()
+    data = ["--info-pkl", tree["info"], "--data-root", os.path.dirname(tree["info"]),
+            "--mask-dir", tree["masks"], "--mask-downsample", str(NUSC_ENTRY_SCALE)]
+    train = ["--model", "fsf", *data, "--gt-db", tree["db"], "--max-steps", str(MULTIHOST_STEPS),
+             "--log-interval", "1"]
+    works = {k: os.path.join(root, f"multihost_{k}") for k in ("one", "torchrun")}
+    t1 = time.perf_counter()
+    stdout = torchrun([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                       "--nproc-per-node", "1", "-m", "fullysparsefusion_tpu_torch.cli.train",
+                       "--multihost", *train, "--work-dir", works["torchrun"]],
+                      "cli.train --multihost under torch.distributed.run")
+    train_s = time.perf_counter() - t1
+    args = TR.parse_args(train + ["--work-dir", works["one"]])
+    TR.run(config_from_args(args), args)
+    torch.cuda.empty_cache()
+    path = {k: ckpt.checkpoint_path(w, MULTIHOST_STEPS) for k, w in works.items()}
+    got, want = (torch.load(path[k], map_location="cpu", weights_only=True)
+                 for k in ("torchrun", "one"))
+    for key in ("model", "optimizer", "step"):
+        if not state_equal(want[key], got[key]):
+            fail(f"multihost train: the checkpoint's {key} differs from one process's")
+    with open(os.path.join(works["torchrun"], "train_log.jsonl")) as f:
+        logged = [json.loads(line) for line in f]
+    with open(os.path.join(works["one"], "train_log.jsonl")) as f:
+        logged_one = [json.loads(line) for line in f]
+    strip = lambda recs: [{k: v for k, v in r.items() if k != "sec_per_step"} for r in recs]  # noqa: E731
+    if strip(logged) != strip(logged_one) or len(logged) != MULTIHOST_STEPS:
+        fail("multihost train: the log differs from one process's")
+    n_logged = stdout.count('"step": ')
+    if n_logged != MULTIHOST_STEPS:
+        fail(f"multihost train: rank 0 printed {n_logged} log lines")
+    train_launches = logged[0]["launches"]
+    if any(r["launches"] != train_launches for r in logged):
+        fail(f"multihost train: launches differ between steps: {[r['launches'] for r in logged]}")
+    for k in ("gather_conv", "ccl_roots", "dw_per_tap"):
+        if train_launches[k] <= 0:
+            fail(f"multihost train: kernel {k} was not launched in the job's steps")
+    log({"phase": "multihost_train", "world_size": 1, "backend": "nccl", "steps": MULTIHOST_STEPS,
+         "losses": [r["loss"] for r in logged], "checkpoint_bitwise": True,
+         "checkpoint_mib": mib(path["one"]), "process_seconds": round(train_s, 3),
+         "launches_per_step": train_launches})
+    del got, want
+
+    serve = ["--model", "fsf", *data[4:]]
+    one_json, two_json = (os.path.join(root, f"multihost_{k}.json") for k in ("one", "torchrun"))
+    shards = os.path.join(root, "multihost_shards")
+    args = T.parse_args(["--config", REF_CONFIG, "--checkpoint", path["torchrun"], *data[:4],
+                         "--eval", "--out", one_json, *serve])
+    res = T.run(config_from_args(args), args)
+    t1 = time.perf_counter()
+    stdout = torchrun([os.path.join(REPO_ROOT, "tools", "launch_test_torch.sh"), REF_CONFIG,
+                       path["torchrun"], tree["info"], os.path.dirname(tree["info"]), *serve,
+                       "--tmpdir", shards, "--out", two_json],
+                      "tools/launch_test_torch.sh (cli.test --multihost --tmpdir)",
+                      env=dict(os.environ, MASTER_PORT=str(free_port())))
+    test_s = time.perf_counter() - t1
+    with open(one_json, "rb") as f, open(two_json, "rb") as g:
+        if f.read() != g.read():
+            fail("multihost test: the merged JSON differs from one process's")
+    if sorted(os.listdir(shards)) != ["results_rank000.json"]:
+        fail(f"multihost test: shard files {sorted(os.listdir(shards))}")
+    if json.dumps(res["metrics"], indent=2) not in stdout:
+        fail("multihost test: rank 0's metrics differ from one process's")
+    (summary,) = [json.loads(line) for line in stdout.splitlines()
+                  if line.startswith('{"samples": ')]
+    n = len(res["results"])
+    if summary["samples"] != n or summary["launches"] != res["launches"]:
+        fail(f"multihost test: rank 0's summary {summary} against one process's "
+             f"{n} samples, launches {res['launches']}")
+    for k in NUSC_ENTRY_KERNELS:
+        if summary["launches"][k] <= 0:
+            fail(f"multihost test: kernel {k} was not launched in the job")
+    test_launches = {k: v / n for k, v in summary["launches"].items()}
+    log({"phase": "multihost_test", "world_size": 1, "samples": n,
+         "detections": [len(r["scores"]) for r in res["results"]], "json_mib": mib(one_json),
+         "json_byte_identical": True, "mAP": res["metrics"]["mAP"], "NDS": res["metrics"]["NDS"],
+         "process_seconds": round(test_s, 3), "launches_per_request": test_launches})
+    del res
+    torch.cuda.empty_cache()
+    log({"phase": "multihost", "seconds": round(time.perf_counter() - t0, 3)})
+    return {"train": train_launches, "test": test_launches}
+
+
 KERNEL_INFO = {
     "gather_conv": ("fullysparsefusion_tpu_torch/csrc/gather_conv.cu",
                     "fullysparsefusion_tpu/ops/pallas_kernels.py:366"),
@@ -4099,7 +4337,13 @@ KERNEL_INFO = {
 }
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description="Drive the PyTorch port on one NVIDIA GPU.")
+    ap.add_argument("--descent-out", help="the descent phase's artifact (default: a temporary "
+                                          "directory's, removed at the end)")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU", file=sys.stderr)
         return 1
@@ -4170,6 +4414,10 @@ def main() -> int:
             main_per_request=main_per_request, nusc_per_step=nusc["train_per_step"])
         exported = export_phase(wrappers, root, main_per_request)
         offline = offline_tools_phase(wrappers, root, nusc["tree"], nusc["per_request"], av2)
+        multihost = multihost_phase(nusc["tree"], root)
+    with tempfile.TemporaryDirectory() as workdir:
+        descent = descent_phase(wrappers, args.descent_out or
+                                os.path.join(workdir, "h100_fsf_training_descent.json"))
     entries = []
     for name, st in stats.items():
         source, replaces = KERNEL_INFO[name]
@@ -4229,7 +4477,10 @@ def main() -> int:
                      fsd_export_launches_per_request=exported["fsd"][name],
                      mask_tool_launches_per_sample=offline["per_sample"][name],
                      mask_tool_fsf_launches_per_request=offline["per_request"][name],
-                     av2_disk_launches_per_request=offline["av2_disk"][name])
+                     av2_disk_launches_per_request=offline["av2_disk"][name],
+                     descent_launches_per_step=descent[name],
+                     multihost_train_launches_per_step=multihost["train"][name],
+                     multihost_test_launches_per_request=multihost["test"][name])
         if name == "nms_keep":
             entry["tta"] = nusc["tta"]
         entries.append(entry)

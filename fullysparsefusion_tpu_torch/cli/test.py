@@ -8,8 +8,14 @@ single-channel masks of ``--mask-dir`` (``cli/common.load_av2_masks``),
 ``--img-h`` / ``--img-w`` by default the ring cameras' size in the pickle,
 the detections written as an AV2 feather (``AV2Reader.format_results``)
 and scored by AV2 AP / CDS. ``--tta`` runs the scale × rotation × flip
-grid and fuses the union by rotated NMS;
-``--tmpdir`` writes this rank's shard file and merges them on rank 0.
+grid and fuses the union by rotated NMS. ``--multihost`` makes this process
+one rank of the group that ``python -m torch.distributed.run`` starts on
+every node (``env://``; ``tools/launch_test_torch.sh``): each rank serves
+its ``idx % world`` shard of the samples, and rank 0 alone writes ``--out``
+and the metrics, over every rank's samples in dataset order. The results
+come together through ``--tmpdir`` (each rank writes its
+``results_rank{r:03d}.json``, the JAX package's shard file, and rank 0
+merges them after a barrier) or, without it, through an all-gather.
 :func:`run` serves a given config; :func:`main` builds the config from
 ``--tiny`` / ``--synthetic`` (the tiny test config), else from a
 reference-style config file (``--config``), else takes the full nuScenes
@@ -23,6 +29,9 @@ first ``--vis-max`` samples (``utils/visualize.py``; needs matplotlib).
         --info-pkl data/av2/av2_infos_val.pkl --data-root data/av2 \
         --mask-dir data/av2/masks --out results/dets.feather --eval
     python -m fullysparsefusion_tpu_torch.cli.test --synthetic --cpu
+    # every card of this node, shard files in a directory all ranks share
+    tools/launch_test_torch.sh CONFIG CKPT INFO_PKL DATA_ROOT --model fsf \
+        --mask-dir data/masks --tmpdir work_dirs/shards --out results/dets.json
 """
 from __future__ import annotations
 
@@ -45,7 +54,9 @@ from ..data.tta import fuse_union, run_tta, tta_grid
 from ..eval.av2_detection import evaluate_av2
 from ..eval.detection import DetectionRecord, default_attributes, evaluate_detections
 from ..models.camera import CameraData
-from ..parallel.eval import merge_shard_results, shard_indices, write_shard_results
+from ..parallel.eval import (allgather_in_dataset_order, allgather_results, merge_shard_results,
+                             shard_indices, write_shard_results)
+from ..parallel.launch import env_group
 from ..train.checkpoint import load_model_vars
 from ..utils.visualize import dump_bev, dump_camera_assignment
 from .common import (AV2_POINT_WIDTH, MODELS, READER_POINT_WIDTH, build_model, config_from_args,
@@ -77,6 +88,9 @@ def parse_args(argv=None):
     p.add_argument("--tta-scales", default="1.0")
     p.add_argument("--tta-no-flip", action="store_true")
     p.add_argument("--tmpdir", help="shard-file collect dir for multi-process eval")
+    p.add_argument("--multihost", action="store_true",
+                   help="one rank of the group torch.distributed.run starts on every node "
+                        "(env://; tools/launch_test_torch.sh)")
     p.add_argument("--cpu", action="store_true", help="run on the host CPU")
     p.add_argument("--vis-dir", help="per-sample BEV (+ camera) debug PNGs (needs matplotlib)")
     p.add_argument("--vis-max", type=int, default=8, help="samples to visualize")
@@ -112,18 +126,31 @@ def av2_image_size(infos) -> Tuple[int, int]:
 
 def run(cfg: FSFConfig, args, model=None) -> Dict:
     """Serve ``cfg`` over the tree ``args`` name (``model``: an already
-    built model to serve instead of one from seed 0). Returns the ``model``,
+    built model to serve instead of one from seed 0); with ``--multihost``
+    as this process's rank of the ``torch.distributed.run`` group, joined
+    for the call. Returns the ``model``,
     the ``results`` (token, boxes, scores, labels per sample; AV2 adds
     ``log_id`` and ``timestamp_ns``), a record per sample of this rank
     (``samples``: the host ms of ``read`` (the reader), ``collate``,
     ``masks`` (PNG decode and pack) and ``input`` (conversion and copy to
     the device), the device ms ``gpu_ms`` of forward + ``get_bboxes``
     (summed over the TTA variants), the ``detections``, the TTA
-    ``union``'s size and the kernels' ``launches``) and, with ``--eval``,
-    the ``metrics``."""
+    ``union``'s size and the kernels' ``launches``), the kernels'
+    ``launches`` over every rank's samples and, with ``--eval``, the
+    ``metrics``. Under a process group, rank 0 returns every rank's
+    ``results`` and alone writes ``--out`` and scores them; the other ranks
+    return their own (``--tmpdir``) or every rank's results, nothing
+    written."""
     device = resolve_device(args.cpu)
     if args.synthetic:
         return _synthetic(cfg, args, device)
+    if args.multihost:
+        with env_group(args.cpu):
+            return _serve(cfg, args, model, device)
+    return _serve(cfg, args, model, device)
+
+
+def _serve(cfg: FSFConfig, args, model, device) -> Dict:
     if not (args.info_pkl and args.data_root):
         raise ValueError("--info-pkl and --data-root are required (or use --synthetic)")
     use_fsf = args.model == "fsf"
@@ -265,13 +292,22 @@ def run(cfg: FSFConfig, args, model=None) -> Dict:
                 gt_attrs=np.asarray(gt_attrs, np.int32) if gt_attrs is not None else None))
     out = dict(model=model, samples=per_sample,
                sec_per_sample=(time.time() - t_all) / max(len(own), 1))
+    rank = dist.get_rank() if dist.is_initialized() else 0
+    mine = {k: sum(r["launches"][k] for r in per_sample) for k in kernel_launches()}
+    parts = allgather_results([mine])
+    out["launches"] = {k: sum(p[k] for p in parts) for k in mine}   # over every rank's samples
     if args.tmpdir:
         write_shard_results(results, args.tmpdir)
         if dist.is_initialized():
             dist.barrier()  # every rank's shard file is written
-            if dist.get_rank() != 0:
-                return dict(out, results=results)
-        results = merge_shard_results(args.tmpdir)
+        if rank == 0:
+            results = merge_shard_results(args.tmpdir)
+    else:
+        results = allgather_in_dataset_order(results)
+    if args.eval:
+        records = allgather_in_dataset_order(records)
+    if rank != 0:
+        return dict(out, results=results)
     out_path = args.out or f"results/detections.{'feather' if av2 else 'json'}"
     os.makedirs(os.path.dirname(os.path.abspath(out_path)), exist_ok=True)
     if av2:
@@ -302,7 +338,8 @@ def main(argv: Optional[list] = None) -> None:
     if args.synthetic or "out" not in out:
         return
     print(json.dumps({"samples": len(out["results"]),
-                      "sec_per_sample": round(out["sec_per_sample"], 3), "out": out["out"]}))
+                      "sec_per_sample": round(out["sec_per_sample"], 3), "out": out["out"],
+                      "launches": out["launches"]}))
     if "metrics" in out:
         print(json.dumps(out["metrics"], indent=2))
 

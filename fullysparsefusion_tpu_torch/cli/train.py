@@ -2,11 +2,19 @@
 ``tools/train.py``).
 
 One process trains on the card (``--cpu``: on the host); with ``--ranks N``
-it spawns N processes joined by ``torch.distributed`` (NCCL on the cards,
-gloo with ``--cpu``), each on its stride of the dataset, that step through
-``parallel.train.sharded_train_step``. The loop gates GT paste, the
+it spawns N processes on this host joined by ``torch.distributed`` (NCCL on
+the cards, gloo with ``--cpu``), and with ``--multihost`` it is one rank of
+the group that ``python -m torch.distributed.run`` starts on every node
+(``env://``; ``tools/launch_train_torch.sh``). Each rank takes its
+``rank::world`` stride of the dataset and steps through
+``parallel.train.sharded_train_step``; rank 0 alone logs and writes
+checkpoints, and ``--resume`` reads the newest checkpoint of ``--work-dir``
+on every rank (a directory all nodes share). ``--batch-size`` is the global
+batch, as in the JAX tool: one sample per rank by default, divided evenly
+among the ranks. The loop gates GT paste, the
 detection losses and the foreground-threshold buffer by ``RuntimeSchedule``,
-appends ``train_log.jsonl`` records and writes ``step_{step:08d}.pt``
+appends ``train_log.jsonl`` records (loss, losses and rank 0's kernel
+launches in the logged step) and writes ``step_{step:08d}.pt``
 checkpoints into ``--work-dir``. :func:`run` is the loop for a given config;
 :func:`main` builds the config from ``--tiny`` / ``--synthetic`` (the tiny
 test config), else from a reference-style config file (``--config``,
@@ -24,6 +32,9 @@ config. ``--vis-dir`` writes a BEV PNG of the batch every
         --config FSF_nuScenes_config.py --init-from vars.pkl ...
     # smoke run on the synthetic scene, on the CPU
     python -m fullysparsefusion_tpu_torch.cli.train --synthetic --tiny --cpu --max-steps 2
+    # every card of two nodes, a global batch of 16 (run on each node)
+    NNODES=2 NODE_RANK=0 MASTER_ADDR=node0 tools/launch_train_torch.sh CONFIG INFO_PKL \
+        DATA_ROOT --model fsf --mask-dir data/masks --batch-size 16
 """
 from __future__ import annotations
 
@@ -41,7 +52,7 @@ from ..config import FSFConfig
 from ..data.gt_sampling import GTPasteSampler
 from ..data.nuscenes import NuScenesReader
 from ..models.camera import CameraData
-from ..parallel.launch import spawn_ranks
+from ..parallel.launch import env_group, spawn_ranks
 from ..parallel.train import Batch, make_optimizer, sharded_train_step
 from ..train import checkpoint as ckpt
 from ..train.hooks import RuntimeSchedule
@@ -59,7 +70,8 @@ def parse_args(argv=None):
     p.add_argument("--work-dir", default="work_dirs/default")
     p.add_argument("--max-steps", type=int, default=0, help="0 = --epochs over the dataset")
     p.add_argument("--epochs", type=int, default=6)
-    p.add_argument("--batch-size", type=int, default=0, help="0 = one per rank")
+    p.add_argument("--batch-size", type=int, default=0,
+                   help="the global batch, divided evenly among the ranks (0 = one per rank)")
     p.add_argument("--lr", type=float, default=1e-4)
     p.add_argument("--resume", action="store_true")
     p.add_argument("--synthetic", action="store_true", help="synthetic-scene smoke run")
@@ -85,6 +97,9 @@ def parse_args(argv=None):
                    help="turn GT-paste off from this step (DisableAugmentationHook)")
     p.add_argument("--ranks", type=int, default=1,
                    help="data-parallel processes (one card each; gloo with --cpu)")
+    p.add_argument("--multihost", action="store_true",
+                   help="one rank of the group torch.distributed.run starts on every node "
+                        "(env://; tools/launch_train_torch.sh)")
     p.add_argument("--cpu", action="store_true", help="run on the host CPU")
     p.add_argument("--vis-dir", help="BEV debug PNGs of the training batches (needs matplotlib)")
     p.add_argument("--vis-interval", type=int, default=200)
@@ -95,6 +110,16 @@ def _parse_paste_max(spec: str, num_classes: int) -> Dict[int, int]:
     if ":" in spec:
         return {int(k): int(v) for k, v in (part.split(":") for part in spec.split(","))}
     return {c: int(spec) for c in range(num_classes)}
+
+
+def per_rank_batch(batch_size: int, world: int) -> int:
+    """Each rank's share of the global ``batch_size`` (0: one sample per
+    rank); raises unless ``world`` divides it."""
+    batch_size = batch_size or world
+    if batch_size % world:
+        raise ValueError(f"--batch-size {batch_size} is not divisible by the {world} ranks "
+                         f"(batch_size, world) = {(batch_size, world)}")
+    return batch_size // world
 
 
 def _synthetic_batches(cfg: FSFConfig, use_fsf: bool, device):
@@ -154,7 +179,7 @@ def _dump_batch(vis_dir: str, step: int, batch: Batch, paste: bool) -> None:
              gt_boxes=gt.boxes[0].cpu().numpy()[gv], title=f"step {step} paste={paste}")
 
 
-class _StepTimer:
+class StepTimer:
     """The step's phases ("forward", "backward", "allreduce", "optimizer"),
     by CUDA events on the card and the host clock on the CPU."""
 
@@ -198,7 +223,7 @@ def _train(cfg: FSFConfig, args, group=None) -> Dict:
             raise ValueError("--info-pkl and --data-root are required (or use --synthetic)")
         if use_fsf and not args.mask_dir:
             raise ValueError("--mask-dir is required for --model fsf")
-        batch_size = args.batch_size or 1
+        batch_size = per_rank_batch(args.batch_size, world)
         sampler = None
         if args.gt_db:
             sampler = GTPasteSampler(db_path=args.gt_db,
@@ -217,7 +242,8 @@ def _train(cfg: FSFConfig, args, group=None) -> Dict:
     model = build_model(args.model, model_config(cfg, args.model, width), args.seed, device)
     if args.init_from:
         ckpt.load_jax_variables(args.init_from, model)
-        print(f"initialized from {args.init_from}")
+        if rank == 0:
+            print(f"initialized from {args.init_from}")
     opt = make_optimizer(model, base_lr=args.lr, total_steps=total_steps,
                          lr_mult_rules=LR_MULT_RULES)
     start = 0
@@ -225,7 +251,8 @@ def _train(cfg: FSFConfig, args, group=None) -> Dict:
         path = ckpt.latest_checkpoint(args.work_dir)
         if path:
             start = ckpt.load_checkpoint(path, model, opt)
-            print(f"resumed from {path} at step {start}")
+            if rank == 0:
+                print(f"resumed from {path} at step {start}")
 
     schedule = RuntimeSchedule(
         enable_detection_step=args.pretrain_steps,
@@ -246,10 +273,11 @@ def _train(cfg: FSFConfig, args, group=None) -> Dict:
         if cuda:
             torch.cuda.reset_peak_memory_stats()
         before = kernel_launches()
-        timer = _StepTimer(device)
+        timer = StepTimer(device)
         timer.mark("start")
         loss, losses, _ = sharded_train_step(model, opt, schedule, batch, i, group, timer.mark)
-        rec = {"step": i + 1, "loss": float(loss), "paste": schedule.augmentation_enabled(i),
+        rec = {"step": i + 1, "loss": float(loss), "batch": int(batch.gt.boxes.shape[0]),
+               "paste": schedule.augmentation_enabled(i),
                "host_ms": host, **timer.ms(), "launches": launches_since(before),
                "losses": {k: float(v) for k, v in losses.items()}}
         if cuda:
@@ -259,7 +287,7 @@ def _train(cfg: FSFConfig, args, group=None) -> Dict:
             dt = (time.time() - t0) / args.log_interval
             t0 = time.time()
             line = {"step": i + 1, "loss": round(rec["loss"], 4), "sec_per_step": round(dt, 3),
-                    "paste": rec["paste"],
+                    "paste": rec["paste"], "launches": rec["launches"],  # rank 0's, this step
                     **{k: round(v, 4) for k, v in rec["losses"].items()}}
             print(json.dumps(line))
             with open(log_path, "a") as f:
@@ -277,14 +305,24 @@ def _rank_main(rank: int, world: int, group, cfg: FSFConfig, args) -> Dict:
 
 
 def run(cfg: FSFConfig, args) -> Dict:
-    """Train ``cfg`` as ``args`` say. One rank: returns the ``model``, the
-    optimizer ``opt``, the first step ``start`` (after a resume) and a
-    record per step (``steps``: loss and losses, the host ms of ``read``,
-    ``paste``, ``collate``, ``masks`` and ``input``, the device ms of each
-    phase, the kernels' ``launches`` and, on the card, ``peak_mib``).
-    Several ranks: each rank's ``steps``, ``start`` and ``total_steps``."""
+    """Train ``cfg`` as ``args`` say. One rank, or this process's rank with
+    ``--multihost``: returns the ``model``, the optimizer ``opt``, the first
+    step ``start`` (after a resume) and a record per step (``steps``: loss
+    and losses, the rank's ``batch``, the host ms of ``read``, ``paste``,
+    ``collate``, ``masks`` and ``input``, the device ms of each phase, the
+    kernels' ``launches`` and, on the card, ``peak_mib``). ``--ranks N``:
+    each rank's ``steps``, ``start`` and ``total_steps``."""
+    if args.multihost:
+        if args.ranks > 1:
+            raise ValueError("--multihost takes its ranks from torch.distributed.run; "
+                             "--ranks spawns processes on one host: pass one of them")
+        resolve_device(args.cpu)
+        with env_group(args.cpu) as group:
+            return _train(cfg, args, group)
     if args.ranks <= 1:
         return _train(cfg, args)
+    if not args.synthetic:
+        per_rank_batch(args.batch_size, args.ranks)   # refused before any rank starts
     with tempfile.TemporaryDirectory() as tmp:
         return {"ranks": spawn_ranks(_rank_main, args.ranks, os.path.join(tmp, "rendezvous"),
                                      (cfg, args), backend="gloo" if args.cpu else "nccl",

@@ -232,6 +232,27 @@ def nusc_fsf_config(caps: Optional[Capacities] = None) -> FSFConfig:
     return FSFConfig(fsd=fsd)
 
 
+# the JAX package bench's per-sample capacities and UNet stage capacities
+# (measured scan occupancy + 10 %); max_gt and max_roi_points stay per sample
+BENCH_CAPS = dict(
+    points=131072, voxels=57344, prevox=65536, fg_per_group=4096,
+    cluster_voxels_per_group=1024, clusters=1024, frustum_points=16384,
+    frustum_objects=256, roi_points=32768,
+)
+BENCH_STAGE_CAPS = (57344, 40960, 24576, 8192, 2560)
+
+
+def bench_fsf_config(batch: int = 1) -> FSFConfig:
+    """Full-width nuScenes FSF at the JAX package bench's capacities for a
+    global batch of ``batch`` samples: every capacity but ``max_gt`` (128)
+    and ``max_roi_points`` (512) scaled by ``batch``, as the bench scales
+    them (its ``FSF_BENCH_BATCH``)."""
+    caps = Capacities(**{k: v * batch for k, v in BENCH_CAPS.items()}, max_gt=128,
+                      max_roi_points=512)
+    seg = VoteSegmentorConfig(unet_stage_capacities=tuple(c * batch for c in BENCH_STAGE_CAPS))
+    return FSFConfig(fsd=FSDConfig(caps=caps, segmentor=seg))
+
+
 def av2_fsf_config(caps: Optional[Capacities] = None) -> FSFConfig:
     """Production Argoverse 2 FSF (reference FSF_AV2_config.py): 26 classes,
     7 ring cameras, ±204.8 m range, code_size 8 (no velocity)."""

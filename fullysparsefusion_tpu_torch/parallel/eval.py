@@ -3,8 +3,8 @@
 Each rank runs inference on its shard of the dataset (``idx % world ==
 rank``, the split the reference uses), and the results merge either by an
 all-gather of the ranks' result lists (small payloads) or through one
-shard file per rank that rank 0 merges back into dataset order (large
-payloads). The shard files and their merge are the JAX package's, so a
+shard file per rank that rank 0 merges (large payloads); both come back
+into dataset order by one round-robin :func:`interleave`. The shard files and their merge are the JAX package's, so a
 directory written by either package merges the same way in the other.
 """
 from __future__ import annotations
@@ -31,15 +31,36 @@ def shard_indices(n: int, rank: Optional[int] = None, world: Optional[int] = Non
     return np.arange(r if rank is None else rank, n, w if world is None else world)
 
 
+def _gather(local: List[Any], world: int, group=None) -> List[List[Any]]:
+    gathered: List[Any] = [None] * world
+    dist.all_gather_object(gathered, local, group=group)
+    return gathered
+
+
 def allgather_results(local_results: List[Any], group=None) -> List[Any]:
     """Every rank's result list, concatenated in rank order, on every rank
     (``all_gather_object``; the list itself at world size 1)."""
     _, world = _rank_world(group)
     if world == 1:
         return local_results
-    gathered: List[Any] = [None] * world
-    dist.all_gather_object(gathered, local_results, group=group)
-    return [r for part in gathered for r in part]
+    return [r for part in _gather(local_results, world, group) for r in part]
+
+
+def allgather_in_dataset_order(local_results: List[Any], group=None) -> List[Any]:
+    """Every rank's list of its ``idx % world`` shard, interleaved back to
+    dataset order (:func:`interleave`), on every rank (the list itself at
+    world size 1)."""
+    _, world = _rank_world(group)
+    if world == 1:
+        return local_results
+    return interleave(_gather(local_results, world, group))
+
+
+def interleave(shards: List[List[Any]]) -> List[Any]:
+    """The ranks' shard lists, in rank order, back in dataset order: round
+    robin, the inverse of the ``idx % world`` split."""
+    n = max(map(len, shards), default=0)
+    return [s[i] for i in range(n) for s in shards if i < len(s)]
 
 
 def write_shard_results(results: List[Dict[str, Any]], tmpdir: str,
@@ -54,22 +75,11 @@ def write_shard_results(results: List[Dict[str, Any]], tmpdir: str,
 
 
 def merge_shard_results(tmpdir: str) -> List[Dict[str, Any]]:
-    """Rank 0's merge of all shard files, interleaved back to dataset order
-    (round robin, the inverse of the ``idx % world`` split)."""
+    """Rank 0's merge of all shard files, back in dataset order
+    (:func:`interleave`)."""
     shards = []
     for fname in sorted(os.listdir(tmpdir)):
         if fname.startswith("results_rank"):
             with open(os.path.join(tmpdir, fname)) as f:
                 shards.append(json.load(f))
-    out: List[Dict[str, Any]] = []
-    i = 0
-    while True:
-        added = False
-        for s in shards:
-            if i < len(s):
-                out.append(s[i])
-                added = True
-        if not added:
-            break
-        i += 1
-    return out
+    return interleave(shards)

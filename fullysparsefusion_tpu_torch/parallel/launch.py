@@ -4,13 +4,19 @@
 rendezvous (a file that no other run uses, so parallel runs cannot collide
 on a port); ``spawn_ranks`` starts ``world_size`` processes with the spawn
 method, runs ``fn(rank, world_size, group, *args)`` in each under a group,
-and returns every rank's result, moved to the host. The default is NCCL on
-the card; the CPU is used only when asked for (``backend="gloo"``,
-``device="cpu"``). Spawned processes import the module that holds ``fn``
-again, so it must import nothing heavy at top level.
+and returns every rank's result, moved to the host. ``env_group`` joins the
+group that ``python -m torch.distributed.run`` describes in the environment
+(``env://``: ``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR``,
+``MASTER_PORT``), one process per card on every node, for the entry points'
+``--multihost``. The default is NCCL on the card; the CPU is used only when
+asked for (``backend="gloo"``, ``device="cpu"``). Spawned processes import
+the module that holds ``fn`` again, so it must import nothing heavy at top
+level.
 """
 from __future__ import annotations
 
+import contextlib
+import os
 import queue
 import traceback
 from typing import Any, Callable, List, Sequence
@@ -30,6 +36,33 @@ def init_group(rank: int, world_size: int, init_file: str, backend: str = "nccl"
     dist.init_process_group(backend, init_method=f"file://{init_file}", rank=rank,
                             world_size=world_size)
     return dist.group.WORLD
+
+
+ENV_KEYS = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")
+
+
+@contextlib.contextmanager
+def env_group(cpu: bool):
+    """The default process group joined through ``env://`` from the
+    variables ``torch.distributed.run`` sets, for the block: NCCL with this
+    process on card ``LOCAL_RANK`` modulo the cards present, or gloo on the
+    host with ``cpu``; destroyed when the block ends. Raises when a
+    variable is missing (the process was not started by
+    ``torch.distributed.run``)."""
+    missing = [k for k in ENV_KEYS if k not in os.environ]
+    if missing:
+        raise RuntimeError(f"--multihost: {', '.join(missing)} not set; start the processes with "
+                           "python -m torch.distributed.run (tools/launch_train_torch.sh, "
+                           "tools/launch_test_torch.sh)")
+    if not cpu:
+        torch.cuda.set_device(int(os.environ["LOCAL_RANK"]) % torch.cuda.device_count())
+    dist.init_process_group("gloo" if cpu else "nccl", init_method="env://",
+                            rank=int(os.environ["RANK"]),
+                            world_size=int(os.environ["WORLD_SIZE"]))
+    try:
+        yield dist.group.WORLD
+    finally:
+        dist.destroy_process_group()
 
 
 def to_host(obj):
