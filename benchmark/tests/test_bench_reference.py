@@ -1,0 +1,67 @@
+"""The reference against the program's plain path (its CPU kernels), on the
+tiny FSF configuration, the same weights and the same scenes.
+
+On the CPU the program's three kernels run their plain versions, which the
+reference copies, and the rest of both is the same PyTorch: served
+detections agree bitwise (tolerance 0). In training the first step's losses
+and gradients agree to f32 round-off (the program's dw_per_tap CPU path
+sums per tap in another order than the reference's), held at 1e-5 of each
+loss and of each leaf's gradient norm (floored at the median leaf's)."""
+import math
+
+import torch
+
+from benchmark.harness import judge, sides, traffic, weights
+from benchmark.tests import tiny
+
+SEED = 2**31 + 77
+
+
+def setup(points_on):
+    cfg = tiny.tiny_config()
+    t = dict(pool=2, objects=[3, 5], points_on=points_on)
+    pool = traffic.make_pool(cfg, t, SEED, "cpu")
+    state = weights.make_state(sides.reference_model(cfg, "meta"), SEED, "cpu")
+    ref = sides.reference_model(cfg, "cpu")
+    ref.load_state_dict(state, strict=True)
+    return cfg, pool, state, ref.eval(), sides.program_model(cfg, state, "cpu")
+
+
+def test_served_detections_agree_bitwise():
+    _, pool, _, ref, prog = setup("host")
+    for f in pool:
+        pb, cam, _ = sides.program_inputs(f, "cpu")
+        rpb, rcam, _ = sides.reference_inputs(f, "cpu")
+        with torch.inference_mode():
+            got = prog.get_bboxes(prog(pb, cam, 1), 1)
+            want = ref.get_bboxes(ref(rpb, rcam, 1), 1)
+        assert int(want.valid.sum()) > 0
+        for a, b in zip(want, got):
+            assert torch.equal(a, b)
+
+
+def test_first_train_step_agrees():
+    from fullysparsefusion_tpu_torch.parallel.train import Batch as PBatch, make_optimizer
+    from fullysparsefusion_tpu_torch.parallel.train import train_step as p_step
+    from fullysparsefusion_tpu_torch.train.hooks import RuntimeSchedule as PSched
+
+    from benchmark.reference import train as rtrain
+    from benchmark.reference.hooks import RuntimeSchedule as RSched
+
+    cfg, pool, _, ref, prog = setup("device")
+    t = cfg["train"]
+    kw = dict(base_lr=t["base_lr"], total_steps=t["total_steps"], lr_mult_rules=t["lr_mult_rules"])
+    p_opt, r_opt = make_optimizer(prog, **kw), rtrain.make_optimizer(ref, **kw)
+    pb, cam, gt = sides.program_inputs(pool[0], "cpu")
+    rpb, rcam, rgt = sides.reference_inputs(pool[0], "cpu")
+    p_loss, p_losses, _ = p_step(prog, p_opt, PSched(), PBatch(pb, cam, gt, gt), 0)
+    r_loss, r_losses, _ = rtrain.train_step(ref, r_opt, RSched(), rtrain.Batch(rpb, rcam, rgt, rgt), 0)
+    assert set(p_losses) == set(r_losses)
+    for k in r_losses:
+        a, b = float(r_losses[k]), float(p_losses[k])
+        assert math.isfinite(a) and abs(a - b) <= 1e-5 * max(1.0, abs(a)), k
+    g_ref = judge.adam_first_grads(r_opt, {id(p): n for n, p in ref.named_parameters()})
+    g_got = judge.adam_first_grads(p_opt, {id(p): n for n, p in prog.named_parameters()})
+    assert sum(v > 0 for v in g_ref.values()) > 0.9 * len(g_ref)
+    worst, leaf = judge.worst_leaf_gap(g_ref, g_got)
+    assert worst <= 1e-5, (worst, leaf)
