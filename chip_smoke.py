@@ -147,7 +147,8 @@ Phases, each of which ends the script with a non-zero exit on failure:
    the seeded model's detections with the main path's K1 / K2 / K3
    launches per request, and ``--export`` gives the state dict back
    bitwise; one request under ``utils.profiling.device_trace``, whose
-   trace must name K1's, K2's and K3's kernels, with ``SectionTimer``'s ms;
+   trace must name K1's, K2's and K3's kernels and every serving span of
+   the program, with the spans' ms;
    the FSD-pretrain warm start: a seeded full-width FSD's ``.pth``
    converted into FSF (the shared leaves bitwise the FSD's), then
    ``cli.train.run --config --init-from`` for 2 steps on the nuScenes tree
@@ -3049,6 +3050,10 @@ INTEROP_KERNELS = ("gather_conv", "ccl_roots", "nms_keep")
 TRACE_KERNELS = {"gather_conv": ("gather_conv_kernel",),
                  "ccl_roots": ("ccl_adjacency_bits", "ccl_union_find"),
                  "nms_keep": ("nms_mask_kernel", "nms_scan_kernel")}
+# the program's spans of one FSF request (utils.profiling.span)
+SERVING_SPANS = ("seg_core", "vfe", "sparse_unet", "seg_head", "camera_queries",
+                 "lidar_queries", "foreground", "clustering", "fusion", "refine", "roi_points",
+                 "decode")
 
 
 def mib(path: str) -> float:
@@ -3327,21 +3332,15 @@ def interop_htc(workdir: str, wrappers) -> None:
 
 def interop_profile(model, cfg, workdir: str) -> None:
     """One FSF request under ``utils.profiling.device_trace``: the trace must
-    name K1's, K2's and K3's CUDA kernels; ``SectionTimer``'s ms per
-    section."""
-    from fullysparsefusion_tpu_torch.utils.profiling import SectionTimer, device_trace, \
-        named_scope
+    name K1's, K2's and K3's CUDA kernels and carry every serving span of
+    the program (``utils.profiling.span``), once each; their device ms."""
+    from fullysparsefusion_tpu_torch.utils.profiling import device_trace, span
 
     t0 = time.perf_counter()
     pb, cam = bench_request(0, cfg)
-    timer = SectionTimer(print_interval=1 << 30)
     trace_dir = os.path.join(workdir, "trace")
-    with device_trace(trace_dir), named_scope("fsf_request"), torch.inference_mode():
-        with timer.section("forward") as sync:
-            res = model(pb, cam, 1)
-            sync(res)
-        with timer.section("get_bboxes") as sync:
-            sync(model.get_bboxes(res, 1))
+    with device_trace(trace_dir) as tr, span("fsf_request"), torch.inference_mode():
+        model.get_bboxes(model(pb, cam, 1), 1)
     with open(os.path.join(trace_dir, "trace.json")) as f:
         events = json.load(f)["traceEvents"]
     kernels = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
@@ -3350,10 +3349,13 @@ def interop_profile(model, cfg, workdir: str) -> None:
     missing = [n for k in found for n, c in found[k].items() if c == 0]
     if missing:
         fail(f"the profiler trace names none of {missing} ({len(kernels)} kernel events)")
-    if not any(e.get("name") == "fsf_request" for e in events):
-        fail("the profiler trace lacks the named scope")
+    annotations = [e.get("name") for e in events if e.get("cat") == "user_annotation"]
+    lacking = [n for n in ("fsf_request",) + SERVING_SPANS if annotations.count(n) != 1]
+    if lacking:
+        fail(f"the profiler trace does not carry the spans {lacking} once each")
+    summary = tr.summary()
     log({"phase": "interop_profile", "kernel_events": len(kernels), "trace_kernels": found,
-         "section_ms": {k: round(v, 3) for k, v in timer.summary().items()},
+         "span_ms": {k: round(v["device_ms"][0], 3) for k, v in summary.items()},
          "trace_mib": mib(os.path.join(trace_dir, "trace.json")),
          "seconds": round(time.perf_counter() - t0, 3)})
 

@@ -23,6 +23,7 @@ from ..ops.segment import SegmentInfo, segment_mean, unique_segments
 from ..ops.voxelize import grid_dims, linearize_coords, voxel_coords, voxelize_points
 from ..utils.containers import GroundTruth, PointBatch
 from ..utils.gather import masked_gather
+from ..utils.profiling import span
 from .heads import (SparseClusterHead, cluster_head_get_bboxes, multi_task_cluster_head_loss,
                     multi_task_get_bboxes)
 from .layers import bn_form
@@ -152,33 +153,34 @@ def cluster_all_groups(centers_list, batch_list, valid_list, cfg: FSDConfig, bat
     one call (coords pre-scaled by each group's connect distance). Returns
     per-group (label [K], point_valid [K]); labels are compact within each
     (group, sample)."""
-    vcap = cfg.caps.cluster_voxels_per_group
-    vps = max(vcap // max(batch_size, 1), 1)
-    pc_range = cfg.segmentor.point_cloud_range
-    xys, vns, per_group = [], [], []
-    for g in range(cfg.num_groups):
-        seg, ok, vc, vn = _cluster_voxelize_group(
-            centers_list[g], batch_list[g], valid_list[g], g, cfg)
-        dims = grid_dims(cfg.cluster_voxel_sizes[g], pc_range)
-        start, gidx, gok = _per_sample_slots(seg, batch_size, dims[0] * dims[1] * dims[2], vps)
-        xys.append((vc[:, :2] / cfg.connected_dists[g])[gidx].reshape(batch_size, vps, 2))
-        vns.append((gok & vn[gidx]).reshape(batch_size, vps))
-        per_group.append((seg, ok, start))
-    nprob = cfg.num_groups * batch_size
-    labels = connected_components_bev_batched(
-        torch.stack(xys).reshape(nprob, vps, 2),
-        torch.zeros(nprob, vps, dtype=torch.int32, device=xys[0].device),
-        torch.stack(vns).reshape(nprob, vps),
-    ).reshape(cfg.num_groups, batch_size * vps)
-    out = []
-    for g in range(cfg.num_groups):
-        seg, ok, start = per_group[g]
-        b = batch_list[g].clamp(0, batch_size - 1).long()
-        r = seg.seg_id.long() - start[b]
-        ok = ok & (r >= 0) & (r < vps)
-        lab = labels[g][b * vps + r.clamp(0, vps - 1)]
-        out.append((torch.where(ok, lab, torch.full_like(lab, -1)).to(torch.int32), ok))
-    return out
+    with span("clustering"):
+        vcap = cfg.caps.cluster_voxels_per_group
+        vps = max(vcap // max(batch_size, 1), 1)
+        pc_range = cfg.segmentor.point_cloud_range
+        xys, vns, per_group = [], [], []
+        for g in range(cfg.num_groups):
+            seg, ok, vc, vn = _cluster_voxelize_group(
+                centers_list[g], batch_list[g], valid_list[g], g, cfg)
+            dims = grid_dims(cfg.cluster_voxel_sizes[g], pc_range)
+            start, gidx, gok = _per_sample_slots(seg, batch_size, dims[0] * dims[1] * dims[2], vps)
+            xys.append((vc[:, :2] / cfg.connected_dists[g])[gidx].reshape(batch_size, vps, 2))
+            vns.append((gok & vn[gidx]).reshape(batch_size, vps))
+            per_group.append((seg, ok, start))
+        nprob = cfg.num_groups * batch_size
+        labels = connected_components_bev_batched(
+            torch.stack(xys).reshape(nprob, vps, 2),
+            torch.zeros(nprob, vps, dtype=torch.int32, device=xys[0].device),
+            torch.stack(vns).reshape(nprob, vps),
+        ).reshape(cfg.num_groups, batch_size * vps)
+        out = []
+        for g in range(cfg.num_groups):
+            seg, ok, start = per_group[g]
+            b = batch_list[g].clamp(0, batch_size - 1).long()
+            r = seg.seg_id.long() - start[b]
+            ok = ok & (r >= 0) & (r < vps)
+            lab = labels[g][b * vps + r.clamp(0, vps - 1)]
+            out.append((torch.where(ok, lab, torch.full_like(lab, -1)).to(torch.int32), ok))
+        return out
 
 
 class FSDQueryBranch(nn.Module):
@@ -194,74 +196,76 @@ class FSDQueryBranch(nn.Module):
         self.bbox_head = SparseClusterHead(cfg.head, cfg.task_tuple(), cfg.class_names)
 
     def extract_foreground(self, pb: PointBatch, seg_out, batch_size: int, thresh_buffer=0.0):
-        c = self.cfg
-        data = dict(points=pb.points, logits=seg_out["seg_logits"], votes=seg_out["vote_preds"],
-                    feats=seg_out["seg_feats"], offsets=seg_out["offsets"])
-        pvseg, _, pv_batch, _ = voxelize_points(
-            pb.xyz, pb.batch_idx, seg_out["valid"], c.pre_voxel_size,
-            c.segmentor.point_cloud_range, c.caps.prevox)
-        red = {k: segment_mean(v, pvseg.seg_id, c.caps.prevox, counts=pvseg.counts)
-               for k, v in data.items()}
-        fg_masks, centers = group_sample(
-            red["logits"], red["offsets"], red["points"][:, :3], pvseg.seg_valid, c,
-            thresh_buffer, batch_idx=pv_batch, batch_size=batch_size)
+        with span("foreground"):
+            c = self.cfg
+            data = dict(points=pb.points, logits=seg_out["seg_logits"], votes=seg_out["vote_preds"],
+                        feats=seg_out["seg_feats"], offsets=seg_out["offsets"])
+            pvseg, _, pv_batch, _ = voxelize_points(
+                pb.xyz, pb.batch_idx, seg_out["valid"], c.pre_voxel_size,
+                c.segmentor.point_cloud_range, c.caps.prevox)
+            red = {k: segment_mean(v, pvseg.seg_id, c.caps.prevox, counts=pvseg.counts)
+                   for k, v in data.items()}
+            fg_masks, centers = group_sample(
+                red["logits"], red["offsets"], red["points"][:, :3], pvseg.seg_valid, c,
+                thresh_buffer, batch_idx=pv_batch, batch_size=batch_size)
 
-        kcap = c.caps.fg_per_group
-        feats_all = torch.cat([red["logits"], red["votes"], red["feats"]], dim=1)
-        g_points, g_feats, g_group, cen_list, bat_list, v_list = [], [], [], [], [], []
-        for g in range(c.num_groups):
-            idx, v = masked_gather(fg_masks[g], kcap)
-            idx = idx.long()
-            g_points.append(red["points"][idx])
-            g_feats.append(feats_all[idx])
-            cen_list.append(centers[g][idx])
-            bat_list.append(pv_batch[idx])
-            v_list.append(v)
-            g_group.append(torch.full((idx.shape[0],), g, dtype=torch.int32, device=idx.device))
-        clustered = cluster_all_groups(cen_list, bat_list, v_list, c, batch_size)
-        labels = torch.cat([lab for lab, _ in clustered])
-        fg = ForegroundSet(
-            points=torch.cat(g_points), feats=torch.cat(g_feats), centers=torch.cat(cen_list),
-            batch_idx=torch.cat(bat_list), group_idx=torch.cat(g_group),
-            valid=torch.cat([ok for _, ok in clustered]))
+            kcap = c.caps.fg_per_group
+            feats_all = torch.cat([red["logits"], red["votes"], red["feats"]], dim=1)
+            g_points, g_feats, g_group, cen_list, bat_list, v_list = [], [], [], [], [], []
+            for g in range(c.num_groups):
+                idx, v = masked_gather(fg_masks[g], kcap)
+                idx = idx.long()
+                g_points.append(red["points"][idx])
+                g_feats.append(feats_all[idx])
+                cen_list.append(centers[g][idx])
+                bat_list.append(pv_batch[idx])
+                v_list.append(v)
+                g_group.append(torch.full((idx.shape[0],), g, dtype=torch.int32, device=idx.device))
+            clustered = cluster_all_groups(cen_list, bat_list, v_list, c, batch_size)
+            labels = torch.cat([lab for lab, _ in clustered])
+            fg = ForegroundSet(
+                points=torch.cat(g_points), feats=torch.cat(g_feats), centers=torch.cat(cen_list),
+                batch_idx=torch.cat(bat_list), group_idx=torch.cat(g_group),
+                valid=torch.cat([ok for _, ok in clustered]))
 
-        vcap = c.caps.cluster_voxels_per_group
-        key = (fg.group_idx * batch_size + fg.batch_idx) * vcap + labels.clamp(min=0)
-        ok = fg.valid & (labels >= 0)
-        cseg = unique_segments(key, ok, c.caps.clusters)
-        fg = fg._replace(valid=ok & (cseg.seg_id < c.caps.clusters))
+            vcap = c.caps.cluster_voxels_per_group
+            key = (fg.group_idx * batch_size + fg.batch_idx) * vcap + labels.clamp(min=0)
+            ok = fg.valid & (labels >= 0)
+            cseg = unique_segments(key, ok, c.caps.clusters)
+            fg = fg._replace(valid=ok & (cseg.seg_id < c.caps.clusters))
 
-        def mean(x):
-            return segment_mean(x, cseg.seg_id, c.caps.clusters, counts=cseg.counts)
+            def mean(x):
+                return segment_mean(x, cseg.seg_id, c.caps.clusters, counts=cseg.counts)
 
-        cluster_xyz = mean(fg.centers)
-        cluster_batch = mean(fg.batch_idx.float()).to(torch.int32)
-        cluster_group = mean(fg.group_idx.float()).to(torch.int32)
-        return fg, cseg, cluster_xyz, cluster_batch, cluster_group, cseg.seg_valid
+            cluster_xyz = mean(fg.centers)
+            cluster_batch = mean(fg.batch_idx.float()).to(torch.int32)
+            cluster_group = mean(fg.group_idx.float()).to(torch.int32)
+            return fg, cseg, cluster_xyz, cluster_batch, cluster_group, cseg.seg_valid
 
     def forward(self, pb: PointBatch, seg_out, batch_size: int, thresh_buffer=0.0):
-        fg, cseg, cluster_xyz, cluster_batch, cluster_group, cluster_valid = (
-            self.extract_foreground(pb, seg_out, batch_size, thresh_buffer))
-        sid = cseg.seg_id.clamp(0, self.cfg.caps.clusters - 1).long()
-        f_cluster = fg.points[:, :3] - cluster_xyz[sid]
-        _, cluster_feats = self.backbone(fg.points, fg.feats, f_cluster, cseg, fg.valid)
-        outs = self.bbox_head(cluster_feats, cluster_valid)
-        result = dict(
-            obj_feat=cluster_feats,
-            cluster_xyz=cluster_xyz,
-            cluster_batch=cluster_batch,
-            cluster_group=cluster_group,
-            cluster_valid=cluster_valid,
-            cls_logits_tasks=outs["cls_logits_tasks"],
-            reg_preds_tasks=outs["reg_preds_tasks"],
-            num_clusters=cluster_valid.sum(dtype=torch.int32),
-            num_fg_points=fg.valid.sum(dtype=torch.int32),
-        )
-        if len(self.cfg.task_tuple()) == 1:
-            # the one task's tensors, which FSF's fusion reads
-            result["cls_logits"] = outs["cls_logits"]
-            result["reg_preds"] = outs["reg_preds"]
-        return result
+        with span("lidar_queries"):
+            fg, cseg, cluster_xyz, cluster_batch, cluster_group, cluster_valid = (
+                self.extract_foreground(pb, seg_out, batch_size, thresh_buffer))
+            sid = cseg.seg_id.clamp(0, self.cfg.caps.clusters - 1).long()
+            f_cluster = fg.points[:, :3] - cluster_xyz[sid]
+            _, cluster_feats = self.backbone(fg.points, fg.feats, f_cluster, cseg, fg.valid)
+            outs = self.bbox_head(cluster_feats, cluster_valid)
+            result = dict(
+                obj_feat=cluster_feats,
+                cluster_xyz=cluster_xyz,
+                cluster_batch=cluster_batch,
+                cluster_group=cluster_group,
+                cluster_valid=cluster_valid,
+                cls_logits_tasks=outs["cls_logits_tasks"],
+                reg_preds_tasks=outs["reg_preds_tasks"],
+                num_clusters=cluster_valid.sum(dtype=torch.int32),
+                num_fg_points=fg.valid.sum(dtype=torch.int32),
+            )
+            if len(self.cfg.task_tuple()) == 1:
+                # the one task's tensors, which FSF's fusion reads
+                result["cls_logits"] = outs["cls_logits"]
+                result["reg_preds"] = outs["reg_preds"]
+            return result
 
 
 class SingleStageFSD(nn.Module):

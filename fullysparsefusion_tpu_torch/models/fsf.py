@@ -23,6 +23,7 @@ from ..config import FSFConfig
 from ..core.assigners import hybrid_assign
 from ..core.coders import BasePointBBoxCoder
 from ..utils.containers import GroundTruth, PointBatch
+from ..utils.profiling import span
 from .camera import CameraData, FrustumBranch, gather_point_instances, per_point_class_scores
 from .fsd import FSDQueryBranch
 from .heads import SparseClusterHead, cluster_head_get_bboxes, cluster_head_loss
@@ -109,7 +110,8 @@ class FSF(nn.Module):
             if gt is not None:
                 pb_inner = PointBatch(points=pb.points[:, :-3], batch_idx=pb.batch_idx,
                                       valid=pb.valid)
-                losses = self._losses(pb_inner, cam, gt, no_aug_gt, result)
+                with span("losses"):
+                    losses = self._losses(pb_inner, cam, gt, no_aug_gt, result)
                 for k in list(losses):
                     if k.startswith(("frustum_loss", "fsd_loss", "stage")) and "loss" in k:
                         losses[k] = losses[k] * detection_weight
@@ -125,30 +127,34 @@ class FSF(nn.Module):
 
         # ① segmentation with image enhancement
         seg_feats, pt_valid = self.seg_core(pb_inner, batch_size)
-        obj_ids, obj_scores = gather_point_instances(noaug_xyz, pb.batch_idx, pt_valid, cam)
-        cls_scores_2d = per_point_class_scores(obj_ids, obj_scores)
-        seg_feats = seg_feats + self.seg_enhance_mlp(cls_scores_2d)
-        seg_feats = seg_feats * pt_valid[:, None].to(seg_feats.dtype)
-        seg_out = self.seg_head(seg_feats, pt_valid)
+        with span("seg_head"):
+            obj_ids, obj_scores = gather_point_instances(noaug_xyz, pb.batch_idx, pt_valid, cam)
+            cls_scores_2d = per_point_class_scores(obj_ids, obj_scores)
+            seg_feats = seg_feats + self.seg_enhance_mlp(cls_scores_2d)
+            seg_feats = seg_feats * pt_valid[:, None].to(seg_feats.dtype)
+            seg_out = self.seg_head(seg_feats, pt_valid)
 
         # ② camera queries
-        fr = self.frustum(points, seg_feats, seg_out["seg_logits"], obj_ids, pb.batch_idx, cam)
-        fr_out = self.frustum_head(fr["obj_feat"], fr["obj_valid"])
+        with span("camera_queries"):
+            fr = self.frustum(points, seg_feats, seg_out["seg_logits"], obj_ids, pb.batch_idx,
+                              cam)
+            fr_out = self.frustum_head(fr["obj_feat"], fr["obj_valid"])
 
         # ③ LiDAR queries
         fsd = self.fsd_branch(pb_inner, seg_out, batch_size, thresh_buffer)
 
         # ④ fusion
-        centers = torch.cat([fr["obj_centers"], fsd["cluster_xyz"]])
-        q_batch = torch.cat([fr["obj_batch"], fsd["cluster_batch"]])
-        q_valid = torch.cat([fr["obj_valid"], fsd["cluster_valid"]])
-        cls_logits = torch.cat([fr_out["cls_logits"], fsd["cls_logits"]])
-        reg_preds = torch.cat([fr_out["reg_preds"], fsd["reg_preds"]])
-        n_fr = fr["obj_feat"].shape[0]
-        res_query = torch.cat([
-            self.combine_frustum_mlp(fr["obj_feat"], q_valid[:n_fr]),
-            self.combine_fsd_mlp(fsd["obj_feat"], fsd["cluster_valid"]),
-        ])
+        with span("fusion"):
+            centers = torch.cat([fr["obj_centers"], fsd["cluster_xyz"]])
+            q_batch = torch.cat([fr["obj_batch"], fsd["cluster_batch"]])
+            q_valid = torch.cat([fr["obj_valid"], fsd["cluster_valid"]])
+            cls_logits = torch.cat([fr_out["cls_logits"], fsd["cls_logits"]])
+            reg_preds = torch.cat([fr_out["reg_preds"], fsd["reg_preds"]])
+            n_fr = fr["obj_feat"].shape[0]
+            res_query = torch.cat([
+                self.combine_frustum_mlp(fr["obj_feat"], q_valid[:n_fr]),
+                self.combine_fsd_mlp(fsd["obj_feat"], fsd["cluster_valid"]),
+            ])
         result = dict(
             seg_out=seg_out,
             frustum=dict(out=fr_out, **{k: v for k, v in fr.items() if k != "obj_feat"}),
@@ -157,29 +163,31 @@ class FSF(nn.Module):
         )
 
         # ⑤ cascade refinement
-        pcr = f.segmentor.point_cloud_range
-        for i in range(c.num_refine_stages):
-            boxes = self.coder.decode(reg_preds, centers).detach()
-            new_centers = boxes[:, :3]
-            rp = extract_roi_points_grid(
-                points[:, :3], pb.batch_idx, pt_valid, boxes[:, :7], q_batch, q_valid,
-                c.extra_wlh, f.caps.roi_points, c.rois_per_point, batch_size=batch_size,
-                bev_lo=(pcr[0], pcr[1]), bev_hi=(pcr[3], pcr[4]))
-            pidx = rp.point_idx.long()
-            sel_img = getattr(self, f"refine_img_mlp_{i}")(cls_scores_2d[pidx], rp.valid)
-            feats_in = torch.cat([seg_feats[pidx], sel_img], dim=1)
-            roi_feats, _ = getattr(self, f"refine_sir_{i}")(
-                points[pidx], feats_in, rp.geometry, rp.roi_idx, rp.valid, centers.shape[0])
-            cur = getattr(self, f"lidar_img_mlp_{i}")(roi_feats, q_valid)
-            pos = getattr(self, f"position_encoder_{i}")(new_centers.detach(), q_valid)
-            query = getattr(self, f"out_proj_{i}")(cur + res_query + pos, q_valid)
-            head_out = getattr(self, f"refined_head_{i}")(query, q_valid)
-            centers = new_centers
-            cls_logits = head_out["cls_logits"]
-            reg_preds = head_out["reg_preds"]
-            res_query = query
-            result["stages"].append(dict(centers=centers, cls_logits=cls_logits,
-                                         reg_preds=reg_preds))
+        with span("refine"):
+            pcr = f.segmentor.point_cloud_range
+            for i in range(c.num_refine_stages):
+                boxes = self.coder.decode(reg_preds, centers).detach()
+                new_centers = boxes[:, :3]
+                with span("roi_points"):
+                    rp = extract_roi_points_grid(
+                        points[:, :3], pb.batch_idx, pt_valid, boxes[:, :7], q_batch, q_valid,
+                        c.extra_wlh, f.caps.roi_points, c.rois_per_point,
+                        batch_size=batch_size, bev_lo=(pcr[0], pcr[1]), bev_hi=(pcr[3], pcr[4]))
+                pidx = rp.point_idx.long()
+                sel_img = getattr(self, f"refine_img_mlp_{i}")(cls_scores_2d[pidx], rp.valid)
+                feats_in = torch.cat([seg_feats[pidx], sel_img], dim=1)
+                roi_feats, _ = getattr(self, f"refine_sir_{i}")(
+                    points[pidx], feats_in, rp.geometry, rp.roi_idx, rp.valid, centers.shape[0])
+                cur = getattr(self, f"lidar_img_mlp_{i}")(roi_feats, q_valid)
+                pos = getattr(self, f"position_encoder_{i}")(new_centers.detach(), q_valid)
+                query = getattr(self, f"out_proj_{i}")(cur + res_query + pos, q_valid)
+                head_out = getattr(self, f"refined_head_{i}")(query, q_valid)
+                centers = new_centers
+                cls_logits = head_out["cls_logits"]
+                reg_preds = head_out["reg_preds"]
+                res_query = query
+                result["stages"].append(dict(centers=centers, cls_logits=cls_logits,
+                                             reg_preds=reg_preds))
         result["final"] = dict(centers=centers, cls_logits=cls_logits, reg_preds=reg_preds,
                                q_batch=q_batch, q_valid=q_valid)
         return result
@@ -222,6 +230,7 @@ class FSF(nn.Module):
     @torch.no_grad()
     def get_bboxes(self, result, batch_size: int):
         fin = result["final"]
-        return cluster_head_get_bboxes(
-            fin["cls_logits"], fin["reg_preds"], fin["centers"], fin["q_batch"], fin["q_valid"],
-            batch_size, self.cfg.refined_head)
+        with span("decode"):
+            return cluster_head_get_bboxes(
+                fin["cls_logits"], fin["reg_preds"], fin["centers"], fin["q_batch"],
+                fin["q_valid"], batch_size, self.cfg.refined_head)

@@ -14,6 +14,7 @@ from ..ops.geometry import gravity_center, points_box_assignment_batched
 from ..ops.sparse_conv import SparseTensor
 from ..ops.voxelize import grid_dims, voxelize_points
 from ..utils.containers import GroundTruth, PointBatch
+from ..utils.profiling import span
 from .layers import MLP
 from .sparse_unet import SparseUNet
 from .vfe import DynamicScatterVFE
@@ -53,20 +54,25 @@ class SegmentorCore(nn.Module):
     def forward(self, pb: PointBatch, batch_size: int):
         c = self.cfg
         xyz = pb.xyz
-        seg, _, vox_batch, vox_coords = voxelize_points(
-            xyz, pb.batch_idx, pb.valid, c.voxel_size, c.point_cloud_range, self.caps.voxels)
-        pt_valid = pb.valid & (seg.seg_id < self.caps.voxels)
-        voxel_feats = self.DynamicScatterVFE_0(pb.points, seg, vox_coords, pt_valid)
-        st = SparseTensor(feats=voxel_feats, coords=vox_coords, batch=vox_batch,
-                          valid=seg.seg_valid, dims=grid_dims(c.voxel_size, c.point_cloud_range),
-                          batch_size=batch_size)
-        unet_out = self.SparseUNet_0(st)
-        sid = seg.seg_id.clamp(0, self.caps.voxels - 1).long()
-        vs = torch.tensor(c.voxel_size, dtype=xyz.dtype, device=xyz.device)
-        lo = torch.tensor(c.point_cloud_range[:3], dtype=xyz.dtype, device=xyz.device)
-        centers = vox_coords.to(xyz.dtype) * vs + vs * 0.5 + lo
-        seg_feats = torch.cat([unet_out[sid], xyz - centers[sid]], dim=1)
-        return seg_feats * pt_valid[:, None].to(seg_feats.dtype), pt_valid
+        with span("seg_core"):
+            with span("vfe"):
+                seg, _, vox_batch, vox_coords = voxelize_points(
+                    xyz, pb.batch_idx, pb.valid, c.voxel_size, c.point_cloud_range,
+                    self.caps.voxels)
+                pt_valid = pb.valid & (seg.seg_id < self.caps.voxels)
+                voxel_feats = self.DynamicScatterVFE_0(pb.points, seg, vox_coords, pt_valid)
+            st = SparseTensor(feats=voxel_feats, coords=vox_coords, batch=vox_batch,
+                              valid=seg.seg_valid,
+                              dims=grid_dims(c.voxel_size, c.point_cloud_range),
+                              batch_size=batch_size)
+            with span("sparse_unet"):
+                unet_out = self.SparseUNet_0(st)
+            sid = seg.seg_id.clamp(0, self.caps.voxels - 1).long()
+            vs = torch.tensor(c.voxel_size, dtype=xyz.dtype, device=xyz.device)
+            lo = torch.tensor(c.point_cloud_range[:3], dtype=xyz.dtype, device=xyz.device)
+            centers = vox_coords.to(xyz.dtype) * vs + vs * 0.5 + lo
+            seg_feats = torch.cat([unet_out[sid], xyz - centers[sid]], dim=1)
+            return seg_feats * pt_valid[:, None].to(seg_feats.dtype), pt_valid
 
 
 class VoteSegHead(nn.Module):

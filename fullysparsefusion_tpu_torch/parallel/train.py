@@ -26,6 +26,7 @@ from ..models.layers import bn_group
 from ..models.two_stage import TwoStageFSD
 from ..train.hooks import RuntimeSchedule
 from ..utils.containers import GroundTruth, PointBatch
+from ..utils.profiling import span
 
 
 def cyclic_lr_schedule(base_lr: float, total_steps: int,
@@ -173,28 +174,33 @@ def sharded_train_step(model: nn.Module, opt: torch.optim.Optimizer, sched: Runt
 
     ``mark(phase)``, when given, is called as each of "forward",
     "backward", "allreduce" (with a group: gradients and losses averaged)
-    and "optimizer" ends. Returns (total loss, losses, grad norm), the
+    and "optimizer" ends, just after the span of that phase
+    (``step.forward`` … ``step.optimizer``, :mod:`utils.profiling`). Returns (total loss, losses, grad norm), the
     first two averaged over the ranks, all still on the device."""
     mark = mark or (lambda phase: None)
-    model.train()
-    opt.zero_grad(set_to_none=True)
-    forward = fsd_forward if isinstance(model, (SingleStageFSD, TwoStageFSD)) else fsf_forward
-    with bn_group(group):
-        out = forward(model, batch, thresh_buffer=sched.threshold_buffer(step),
-                      detection_weight=1.0 if sched.enable_detection(step) else 0.0)
-    loss = total_loss(out["losses"])
+    with span("step.forward"):
+        model.train()
+        opt.zero_grad(set_to_none=True)
+        forward = fsd_forward if isinstance(model, (SingleStageFSD, TwoStageFSD)) else fsf_forward
+        with bn_group(group):
+            out = forward(model, batch, thresh_buffer=sched.threshold_buffer(step),
+                          detection_weight=1.0 if sched.enable_detection(step) else 0.0)
+        loss = total_loss(out["losses"])
     mark("forward")
-    loss.backward()
+    with span("step.backward"):
+        loss.backward()
     mark("backward")
     losses = {k: v.detach() for k, v in out["losses"].items()}
     loss = loss.detach()
     if group is not None:
-        allreduce_grads_mean_(model.parameters(), group)
-        reduced = allreduce_mean(dict(losses, _total=loss), group)
+        with span("step.allreduce"):
+            allreduce_grads_mean_(model.parameters(), group)
+            reduced = allreduce_mean(dict(losses, _total=loss), group)
         loss = reduced.pop("_total")
         losses = reduced
         mark("allreduce")
-    gnorm = optimizer_step(opt, step)
+    with span("step.optimizer"):
+        gnorm = optimizer_step(opt, step)
     mark("optimizer")
     return loss, losses, gnorm
 

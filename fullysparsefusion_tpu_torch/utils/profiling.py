@@ -1,100 +1,137 @@
-"""Profiling and tracing (the port's counterpart of the JAX package's
-``utils/profiling.py``).
+"""Spans of the program's phases, and a ``torch.profiler`` trace of a block.
 
-:class:`SectionTimer` replaces the reference's ``TorchTimer`` (a
-CUDA-synchronised section timer with periodic averaged prints): a section
-ends when the CUDA streams of the tensors given as ``sync`` are done.
-:func:`device_trace` records a ``torch.profiler`` trace of the host and the
-card and writes it as a Chrome trace; :func:`named_scope` labels a span in
-it.
+:func:`span` marks a phase where it runs (``with span("refine"): ...``).
+With tracing off, the default, it returns one shared null context and does
+nothing else. Inside ``with tracing() as tr:`` each span
+
+- enters ``torch.profiler.record_function(name)``, so that it lands in an
+  active profiler trace as a ``user_annotation`` on the clock of the
+  trace's kernels;
+- records a CUDA event pair on the current stream where CUDA is in use
+  (initialised when tracing starts);
+- reads ``time.perf_counter_ns()`` at both ends;
+- keeps its parent, the innermost span open when it opened.
+
+Spans stay in memory; :meth:`Tracer.summary` synchronises once, after the
+work, and gives each name's calls. :func:`device_trace` records the host and
+the card with ``torch.profiler`` inside :func:`tracing`, so its Chrome trace
+carries the spans. Spans are meant for one thread; ``torch.export`` runs
+with tracing off.
 """
 from __future__ import annotations
 
 import contextlib
 import os
 import time
-from collections import defaultdict
-from typing import Dict
+from typing import Dict, List, Optional
 
 import torch
 
-
-def _tensors(tree):
-    if torch.is_tensor(tree):
-        yield tree
-    elif isinstance(tree, dict):
-        for v in tree.values():
-            yield from _tensors(v)
-    elif isinstance(tree, (list, tuple)):
-        for v in tree:
-            yield from _tensors(v)
+_NULL = contextlib.nullcontext()
+_active: Optional["Tracer"] = None
 
 
-def block_until_ready(tree) -> None:
-    """Wait for the current stream of every CUDA device that holds a tensor
-    of ``tree`` (nested dicts, lists and tuples); CPU tensors are ready."""
-    for dev in {t.device for t in _tensors(tree) if t.is_cuda}:
-        torch.cuda.current_stream(dev).synchronize()
+def span(name: str):
+    """A context manager around one phase named ``name`` (recorded only
+    inside :func:`tracing`)."""
+    tr = _active
+    if tr is None:
+        return _NULL
+    return _Span(tr, name)
 
 
-class SectionTimer:
-    """Section timer with a device sync and periodic averages.
+class _Span:
+    __slots__ = ("tracer", "name", "parent", "scope", "events", "t0", "t1", "child_ns")
 
-    Usage::
+    def __init__(self, tracer: "Tracer", name: str):
+        self.tracer, self.name = tracer, name
+        self.events = None
+        self.child_ns = 0
 
-        timer = SectionTimer(print_interval=20)
-        with timer.section("segmentor") as sync:
-            out = seg_fn(x)
-            sync(out)
+    def __enter__(self):
+        tr = self.tracer
+        self.parent = tr.open[-1] if tr.open else None
+        tr.open.append(self)
+        tr.spans.append(self)
+        self.scope = torch.profiler.record_function(self.name)
+        self.scope.__enter__()
+        if tr.cuda:
+            self.events = (torch.cuda.Event(enable_timing=True),
+                           torch.cuda.Event(enable_timing=True))
+            self.events[0].record()
+        self.t0 = time.perf_counter_ns()
+        return self
 
-    ``sync(tree)`` (or ``section(name, sync=tree)`` for a tree made
-    before the section) names what the section waits for before it stops
-    the clock."""
+    def __exit__(self, *exc):
+        self.t1 = time.perf_counter_ns()
+        if self.events is not None:
+            self.events[1].record()
+        self.scope.__exit__(*exc)
+        tr = self.tracer
+        tr.open.pop()
+        if self.parent is not None:
+            self.parent.child_ns += self.t1 - self.t0
+        return False
 
-    def __init__(self, print_interval: int = 20, enabled: bool = True):
-        self.print_interval = print_interval
-        self.enabled = enabled
-        self.totals: Dict[str, float] = defaultdict(float)
-        self.counts: Dict[str, int] = defaultdict(int)
 
-    @contextlib.contextmanager
-    def section(self, name: str, sync=None):
-        waits = [] if sync is None else [sync]
-        if not self.enabled:
-            yield waits.append
-            return
-        t0 = time.perf_counter()
-        yield waits.append
-        block_until_ready(waits)
-        dt = time.perf_counter() - t0
-        self.totals[name] += dt
-        self.counts[name] += 1
-        if self.counts[name] % self.print_interval == 0:
-            avg = self.totals[name] / self.counts[name] * 1000
-            print(f"[timer] {name}: avg {avg:.1f} ms over {self.counts[name]} calls")
+class Tracer:
+    """The spans recorded inside one :func:`tracing` block, in the order
+    they opened."""
 
-    def summary(self) -> Dict[str, float]:
-        """Mean ms per section."""
-        return {k: self.totals[k] / max(self.counts[k], 1) * 1000 for k in self.totals}
+    def __init__(self, cuda: bool):
+        self.cuda = cuda
+        self.spans: List[_Span] = []
+        self.open: List[_Span] = []
+
+    def summary(self) -> Dict[str, Dict]:
+        """Per span name, in the order of its first call: ``parent`` (the
+        first call's parent's name, or None), ``device_ms`` (CUDA events;
+        empty without CUDA), ``host_ms`` and ``self_ms`` (host time less
+        what child spans cover), one entry per finished call. Synchronises
+        the card once."""
+        if self.cuda:
+            torch.cuda.synchronize()
+        out: Dict[str, Dict] = {}
+        for s in self.spans:
+            if not hasattr(s, "t1"):
+                continue
+            e = out.setdefault(s.name, dict(parent=s.parent.name if s.parent else None,
+                                            device_ms=[], host_ms=[], self_ms=[]))
+            if s.events is not None:
+                e["device_ms"].append(s.events[0].elapsed_time(s.events[1]))
+            e["host_ms"].append((s.t1 - s.t0) * 1e-6)
+            e["self_ms"].append((s.t1 - s.t0 - s.child_ns) * 1e-6)
+        return out
+
+
+@contextlib.contextmanager
+def tracing():
+    """Record every :func:`span` of the block; yields the :class:`Tracer`.
+    Inside another ``tracing`` block it yields the open tracer."""
+    global _active
+    if _active is not None:
+        yield _active
+        return
+    tr = Tracer(torch.cuda.is_initialized())
+    _active = tr
+    try:
+        yield tr
+    finally:
+        _active = None
 
 
 @contextlib.contextmanager
 def device_trace(log_dir: str):
     """Profile the block with ``torch.profiler`` (CPU and, when a card is
-    there, CUDA activities) and write ``trace.json`` (Chrome trace format)
-    into ``log_dir``; yields the profiler."""
+    there, CUDA activities) inside :func:`tracing`, and write ``trace.json``
+    (Chrome trace format), which carries the spans, into ``log_dir``;
+    yields the :class:`Tracer`."""
     activities = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(torch.profiler.ProfilerActivity.CUDA)
     os.makedirs(log_dir, exist_ok=True)
-    with torch.profiler.profile(activities=activities) as prof:
-        yield prof
+    with tracing() as tr, torch.profiler.profile(activities=activities) as prof:
+        yield tr
         if torch.cuda.is_available():
             torch.cuda.synchronize()
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
-
-
-def named_scope(name: str):
-    """A labelled span in :func:`device_trace`'s trace
-    (``torch.profiler.record_function``)."""
-    return torch.profiler.record_function(name)

@@ -1,5 +1,6 @@
-"""The port's host tooling on the CPU: ``utils/profiling.py`` (the section
-timer, a ``torch.profiler`` trace with a named span), ``utils/visualize.py``
+"""The port's host tooling on the CPU: ``utils/profiling.py`` (spans off
+and on, a ``torch.profiler`` trace that carries them, the spans of the tiny
+FSF's forward and train step), ``utils/visualize.py``
 against the JAX package's module (the same PNG bytes for the same inputs;
 matplotlib is optional, as in ``tests/test_visualize.py``), HTC activation
 dumps read across the packages (bitwise), and ``--config`` / ``--vis-dir``
@@ -7,6 +8,7 @@ of the train and test entry points.
 """
 import json
 import os
+import time
 
 import numpy as np
 import pytest
@@ -25,31 +27,123 @@ from test_torch_config_compat import FILES
 from test_torch_ddp_port import torch_one_thread  # noqa: F401 (autouse)
 
 
-def test_section_timer_and_device_trace_on_the_cpu(tmp_path, capsys):
-    timer = profiling.SectionTimer(print_interval=2)
-    x = torch.arange(1000.0)
-    for _ in range(4):
-        with timer.section("sum") as sync:
-            sync({"y": [x.sum()]})
-    with timer.section("given", sync=(x, None)):
-        pass
-    summary = timer.summary()
-    assert set(summary) == {"sum", "given"} and timer.counts["sum"] == 4
-    assert all(v >= 0 for v in summary.values())
-    assert capsys.readouterr().out.count("[timer] sum: avg") == 2
-    off = profiling.SectionTimer(enabled=False)
-    with off.section("none") as sync:
-        sync(x)
-    assert off.summary() == {}
-    profiling.block_until_ready({"a": [x, (x, 3)], "b": None})
+def _annotations(prof):
+    return {e.name for e in prof.events()}
 
-    with profiling.device_trace(str(tmp_path / "trace")) as prof:
-        with profiling.named_scope("fsf_request_span"):
-            (x @ x).item()
-    assert prof is not None
+
+def test_span_off_is_the_shared_null_context_and_records_nothing():
+    assert profiling._active is None
+    first = profiling.span("seg_core")
+    assert first is profiling.span("decode") is profiling._NULL
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        with profiling.span("span_left_off"):
+            torch.arange(10.0).sum()
+    assert "span_left_off" not in _annotations(prof)
+    with profiling.tracing() as tr:
+        pass
+    with profiling.span("after_tracing"):
+        pass
+    assert tr.spans == [] and tr.summary() == {}
+
+
+def test_tracing_records_parents_host_and_self_time():
+    x = torch.arange(1000.0)
+    with profiling.tracing() as tr:
+        for _ in range(2):
+            with profiling.span("outer"):
+                with profiling.span("inner"):
+                    (x * 2).sum()
+                with profiling.span("inner"):
+                    time.sleep(0.002)
+        with profiling.tracing() as nested:
+            assert nested is tr
+            with profiling.span("alone"):
+                pass
+    assert profiling.span("outer") is profiling._NULL
+    assert [(s.name, s.parent and s.parent.name) for s in tr.spans[:3]] == [
+        ("outer", None), ("inner", "outer"), ("inner", "outer")]
+    summary = tr.summary()
+    assert list(summary) == ["outer", "inner", "alone"]
+    assert summary["outer"]["parent"] is None and summary["inner"]["parent"] == "outer"
+    assert [len(summary[k]["host_ms"]) for k in summary] == [2, 4, 1]
+    assert all(v["device_ms"] == [] for v in summary.values())
+    inner = summary["inner"]["host_ms"]
+    for i, (host, own) in enumerate(zip(summary["outer"]["host_ms"], summary["outer"]["self_ms"])):
+        assert host >= 2.0 and own >= 0
+        assert own == pytest.approx(host - inner[2 * i] - inner[2 * i + 1], abs=1e-6)
+    assert summary["inner"]["self_ms"] == summary["inner"]["host_ms"]
+
+
+def test_device_trace_carries_the_spans(tmp_path):
+    x = torch.arange(1000.0)
+    with profiling.device_trace(str(tmp_path / "trace")) as tr:
+        with profiling.span("fsf_request_span"):
+            with profiling.span("fsf_request_child"):
+                (x @ x).item()
+    assert list(tr.summary()) == ["fsf_request_span", "fsf_request_child"]
+    assert profiling._active is None
     with open(tmp_path / "trace" / "trace.json") as f:
         trace = json.load(f)
-    assert any(ev.get("name") == "fsf_request_span" for ev in trace["traceEvents"])
+    names = {ev.get("name") for ev in trace["traceEvents"] if ev.get("cat") == "user_annotation"}
+    assert {"fsf_request_span", "fsf_request_child"} <= names
+
+
+SERVING_SPANS = [("seg_core", None), ("vfe", "seg_core"), ("sparse_unet", "seg_core"),
+                 ("seg_head", None), ("camera_queries", None), ("lidar_queries", None),
+                 ("foreground", "lidar_queries"), ("clustering", "foreground"),
+                 ("fusion", None), ("refine", None), ("roi_points", "refine"), ("decode", None)]
+
+
+@pytest.fixture(scope="module")
+def tiny_fsf():
+    from fullysparsefusion_tpu_torch import synthetic as S
+    from fullysparsefusion_tpu_torch.weights import build_fsf
+
+    cfg = tiny_fsf_config()
+    sc = S.make_scene_arrays(seed=0, n_cap=cfg.caps.points, max_gt=cfg.caps.max_gt)
+    cam = S.make_camera_arrays(sc["gt_boxes"], sc["gt_labels"], sc["gt_valid"])
+    pb, cd = S.fsf_inputs(sc, cam, device="cpu")
+    return build_fsf(cfg, device="cpu"), pb, cd, S.to_ground_truth(sc, device="cpu")
+
+
+def test_fsf_serving_spans_in_order_and_outputs_unchanged(tiny_fsf):
+    model, pb, cam, _ = tiny_fsf
+    model.eval()
+    with torch.inference_mode():
+        off = model.get_bboxes(model(pb, cam, 2), 2)
+        with profiling.tracing() as tr:
+            on = model.get_bboxes(model(pb, cam, 2), 2)
+    for k in off._fields:
+        assert torch.equal(getattr(off, k), getattr(on, k)), k
+    assert [(s.name, s.parent and s.parent.name) for s in tr.spans] == SERVING_SPANS
+    summary = tr.summary()
+    top = sum(summary[k]["host_ms"][0] for k, parent in SERVING_SPANS if parent is None)
+    assert all(len(v["host_ms"]) == 1 for v in summary.values()) and top > 0
+
+
+def test_train_step_spans_and_marks(tiny_fsf):
+    from fullysparsefusion_tpu_torch.parallel.train import Batch, make_optimizer, train_step
+    from fullysparsefusion_tpu_torch.train.hooks import RuntimeSchedule
+
+    model, pb, cam, gt = tiny_fsf
+    opt = make_optimizer(model, total_steps=10)
+    marks = []
+
+    def mark(phase):
+        marks.append((phase, profiling._active.open[:]))
+
+    with profiling.tracing() as tr:
+        loss, _, _ = train_step(model, opt, RuntimeSchedule(), Batch(pb, cam, gt, gt), 0, mark)
+    assert torch.isfinite(loss)
+    assert [(p, o) for p, o in marks] == [("forward", []), ("backward", []), ("optimizer", [])]
+    top = [s.name for s in tr.spans if s.parent is None]
+    assert top == ["step.forward", "step.backward", "step.optimizer"]
+    parents = {s.name: s.parent and s.parent.name for s in tr.spans}
+    assert parents["losses"] == "step.forward" and parents["seg_core"] == "step.forward"
+    assert "step.allreduce" not in parents
+    ends = {s.name: (s.t0, s.t1) for s in tr.spans if s.parent is None}
+    assert ends["step.forward"][1] <= ends["step.backward"][0] <= ends["step.backward"][1] \
+        <= ends["step.optimizer"][0]
 
 
 def test_visual_dumps_are_the_jax_modules_bytes(tmp_path):

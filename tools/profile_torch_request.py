@@ -15,26 +15,29 @@ from a nuScenes info tree on disk (``chip_smoke.nusc_entry_tree``: the bench
 scene of seed 0 as a key frame, 9 sweeps and 900 x 1,600 mask PNGs), as
 ``cli.test`` serves a sample; warms up, then:
 
-1. spans: CUDA events around every top-level submodule and around the
-   functions the forward calls outside them (FSF: mask lookup, RoI pooling,
-   foreground extraction, ``get_bboxes``; FSD: foreground extraction,
-   ``get_bboxes``, and per task its decode + NMS and, inside it, the
-   rotated IoU matrix; two-stage: the first stage's parts, the RCNN's RoI
-   pooling, SIR and MLPs, ``get_bboxes`` and its IoU matrix; HTC: the
-   backbone and each of its stages C2-C5, FPN, the RPN head, the proposals
-   (their NMS nested), the semantic head, each cascade stage's RoI
-   features and bbox head, the class NMS, the mask RoI features and mask
-   heads, the box IoU matrices, and on the host the paste and the paint;
-   AV2: FSF's spans, after an ``input`` line with the host conversion and
-   copy of the request's inputs, which the spans leave out; nusc_entry:
-   FSF's spans beside the host's ``read`` (the reader: ``.bin`` files,
-   sweep chain, transforms), ``collate``, ``masks`` (PNG decode and pack)
-   and ``input`` (conversion and copy to the card), during which the card
-   idles),
-   averaged over
-   ``--requests`` requests. Spans are
-   stream time between the two events, idle gaps included, so they add up
-   to the request's time; nested spans are listed with their parent.
+1. spans, averaged over ``--requests`` requests. FSF (``fsf``, ``av2``,
+   ``nusc_entry``): the program's own spans (``utils.profiling.span``:
+   ``seg_core`` with ``vfe`` and ``sparse_unet``, ``seg_head``,
+   ``camera_queries``, ``lidar_queries`` with ``foreground`` and within it
+   ``clustering``, ``fusion``, ``refine`` with ``roi_points``, ``decode``),
+   read from ``utils.profiling.tracing``: their CUDA events' ms and, as
+   ``host_self_ms``, the host's time in each less its child spans'. AV2
+   prints an ``input`` line first with the host conversion and copy of the
+   request's inputs, which the spans leave out; nusc_entry adds the host's
+   ``read`` (the reader: ``.bin`` files, sweep chain, transforms),
+   ``collate``, ``masks`` (PNG decode and pack) and ``input`` (conversion
+   and copy to the card), during which the card idles. The others: CUDA
+   events around every top-level submodule and around the functions the
+   forward calls outside them (FSD: foreground extraction, ``get_bboxes``,
+   and per task its decode + NMS and, inside it, the rotated IoU matrix;
+   two-stage: the first stage's parts, the RCNN's RoI pooling, SIR and
+   MLPs, ``get_bboxes`` and its IoU matrix; HTC: the backbone and each of
+   its stages C2-C5, FPN, the RPN head, the proposals (their NMS nested),
+   the semantic head, each cascade stage's RoI features and bbox head, the
+   class NMS, the mask RoI features and mask heads, the box IoU matrices,
+   and on the host the paste and the paint). Spans are stream time between
+   the two events, idle gaps included; nested spans are listed with their
+   parent.
 2. kernels: ``torch.profiler`` over one request; device time by kernel name
    (top 15) and the device's busy share (the sum of kernel times over the
    request's stream time).
@@ -55,11 +58,6 @@ from collections import defaultdict
 import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-
-SPANS_TOP = ("seg_core", "seg_enhance_mlp", "seg_head", "frustum", "frustum_head",
-             "fsd_branch", "combine_frustum_mlp", "combine_fsd_mlp")
-SPANS_NESTED = {"seg_core": ("DynamicScatterVFE_0", "SparseUNet_0"),
-                "fsd_branch": ("backbone", "bbox_head")}
 
 
 class Spans:
@@ -86,6 +84,35 @@ class Spans:
         for name, a, b in self.done:
             self.ms[name] += a.elapsed_time(b)
         self.done = []
+
+
+class ProgramSpans:
+    """The program's own spans over the requests that :meth:`traced` wraps:
+    device ms (CUDA events) and the host's self ms per span name; a name
+    that recurs adds up."""
+
+    def __init__(self):
+        self.tracers = []
+        self.ms = defaultdict(float)
+        self.host_self_ms = defaultdict(float)
+
+    def traced(self, request):
+        from fullysparsefusion_tpu_torch.utils import profiling
+
+        def run():
+            with profiling.tracing() as tr:
+                out = request()
+            self.tracers.append(tr)
+            return out
+
+        return run
+
+    def collect(self):
+        for tr in self.tracers:
+            for name, s in tr.summary().items():
+                self.ms[name] += sum(s["device_ms"])
+                self.host_self_ms[name] += sum(s["self_ms"])
+        self.tracers = []
 
 
 def hook_module(mod, name, spans):
@@ -138,10 +165,12 @@ def main() -> int:
         spans.collect()
         total += start.elapsed_time(end)
     n = args.requests
-    print(json.dumps({"phase": "spans", "model": args.model, "requests": n,
-                      "request_ms": round(total / n, 3),
-                      "ms": {k: round(v / n, 3) for k, v in
-                             sorted(spans.ms.items(), key=lambda kv: -kv[1])}}), flush=True)
+    line = {"phase": "spans", "model": args.model, "requests": n,
+            "request_ms": round(total / n, 3),
+            "ms": {k: round(v / n, 3) for k, v in sorted(spans.ms.items(), key=lambda kv: -kv[1])}}
+    if isinstance(spans, ProgramSpans):
+        line["host_self_ms"] = {k: round(v / n, 3) for k, v in spans.host_self_ms.items()}
+    print(json.dumps(line), flush=True)
 
     from torch.profiler import ProfilerActivity, profile
 
@@ -155,7 +184,8 @@ def main() -> int:
     wall_ms = start.elapsed_time(end)
     by_kernel = defaultdict(lambda: [0.0, 0])
     for ev in prof.events():
-        if ev.device_type == torch.autograd.DeviceType.CUDA:
+        # the program's spans appear on the device's timeline too; they are no kernels
+        if ev.device_type == torch.autograd.DeviceType.CUDA and not ev.is_user_annotation:
             by_kernel[ev.name][0] += ev.time_range.elapsed_us() / 1e3
             by_kernel[ev.name][1] += 1
     busy = sum(v[0] for v in by_kernel.values())
@@ -345,29 +375,8 @@ def fsf_request_spans(av2: bool = False):
         return model.get_bboxes(model(pb, cam, 1), 1)
 
     warm(request)
-    spans = Spans()
-    hook_fsf(model, cfg, spans)
-    return request, spans
-
-
-def hook_fsf(model, cfg, spans):
-    """FSF's spans: its top-level submodules, the refinement's parts, and
-    the functions the forward calls outside them."""
-    from fullysparsefusion_tpu_torch.models import fsf as fsf_mod
-
-    for name in SPANS_TOP:
-        hook_module(getattr(model, name), name, spans)
-        for sub in SPANS_NESTED.get(name, ()):
-            hook_module(getattr(getattr(model, name), sub), f"{name}.{sub}", spans)
-    for i in range(cfg.num_refine_stages):
-        for part in ("refine_img_mlp", "refine_sir", "lidar_img_mlp", "position_encoder",
-                     "out_proj", "refined_head"):
-            hook_module(getattr(model, f"{part}_{i}"), f"refine.{part}_{i}", spans)
-    wrap(fsf_mod, "gather_point_instances", "mask_lookup", spans)
-    wrap(fsf_mod, "extract_roi_points_grid", "refine.roi_grid_pooling", spans)
-    wrap(model.fsd_branch, "extract_foreground", "fsd_branch.extract_foreground", spans)
-    wrap(model, "get_bboxes", "get_bboxes", spans)
-    wrap(model, "forward", "forward", spans)
+    spans = ProgramSpans()
+    return spans.traced(request), spans
 
 
 def nusc_entry_request_spans():
@@ -380,6 +389,7 @@ def nusc_entry_request_spans():
     from fullysparsefusion_tpu_torch.data.nuscenes import NuScenesReader
     from fullysparsefusion_tpu_torch.data.pipelines import collate_scene
     from fullysparsefusion_tpu_torch.models.camera import CameraData
+    from fullysparsefusion_tpu_torch.utils.profiling import span
     from fullysparsefusion_tpu_torch.weights import build_fsf
 
     cfg = common.model_config(chip_smoke.bench_config(), "fsf", common.READER_POINT_WIDTH)
@@ -389,32 +399,25 @@ def nusc_entry_request_spans():
     reader = NuScenesReader(tree["info"], root.name, cfg.fsd.class_names, training=False,
                             with_cbgs=False)
     model = build_fsf(cfg, seed=0, device="cuda")
-    spans = Spans()
 
     def request():
-        spans.start("read")
-        s = reader.sample(0, augment=False)
-        spans.stop("read")
-        spans.start("collate")
-        batch = collate_scene([s], cfg.caps.points, cfg.caps.max_gt)
-        spans.stop("collate")
-        spans.start("masks")
-        planes = common.load_masks([s], tree["masks"], cfg.num_classes, (900, 1600),
-                                   chip_smoke.NUSC_ENTRY_SCALE)
-        spans.stop("masks")
-        spans.start("input")
-        pb = common.point_batch(batch, "cuda")
-        cam = CameraData.build(*planes, device="cuda")
-        spans.stop("input")
+        with span("read"):
+            s = reader.sample(0, augment=False)
+        with span("collate"):
+            batch = collate_scene([s], cfg.caps.points, cfg.caps.max_gt)
+        with span("masks"):
+            planes = common.load_masks([s], tree["masks"], cfg.num_classes, (900, 1600),
+                                       chip_smoke.NUSC_ENTRY_SCALE)
+        with span("input"):
+            pb = common.point_batch(batch, "cuda")
+            cam = CameraData.build(*planes, device="cuda")
         with torch.inference_mode():
             out = model.get_bboxes(model(pb, cam, 1), 1)
         return out
 
     warm(request)
-    spans.collect()
-    spans.ms.clear()
-    hook_fsf(model, cfg, spans)
-    return request, spans
+    spans = ProgramSpans()
+    return spans.traced(request), spans
 
 
 def plan_glue(request):
