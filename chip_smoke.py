@@ -6,7 +6,14 @@
 Phases, each of which ends the script with a non-zero exit on failure:
 
 1. build the CUDA kernels from ``fullysparsefusion_tpu_torch/csrc`` (one
-   ``nvcc`` per source, all started together);
+   ``nvcc`` per source, all started together); then ``fsf::segment_sum`` at
+   Argoverse 2's shapes (``SEGMENT_PREVOX``: 131,072 rows, 67,000 invalid,
+   into 98,304 segments at widths 4, 27, 81 and 128; ``SEGMENT_CLUSTERS``:
+   24,576 rows into 1,024 skewed segments, past the capacity, at widths 1
+   and 3, the latter a strided view), ids from ``unique_segments`` on the
+   card: each call twice bitwise equal, bitwise the plain version on the
+   CPU and the bare-id form, one launch and no host sync each, graph-timed
+   beside its byte bound and ``index_put_(accumulate=True)`` (``library_ms``);
 2. small-input reference: the tiny FSF config on the GPU (kernels) against
    the same model on the CPU (plain PyTorch versions), same weights and scene;
 3. serve: full-width nuScenes FSF (random weights from seed 0) answers four
@@ -25,7 +32,8 @@ Phases, each of which ends the script with a non-zero exit on failure:
    12,000, coincident points, mixed batch ids, all invalid) and 50,000 nodes
    of ``synthetic.ccl_known_components`` against their known components,
    K3 N = 15,360 (a batch of 12 x 1,280 queries, past the scan's shared
-   memory), each timed;
+   memory), each timed; the request's 16 ``fsf::segment_sum`` calls are
+   replayed as in phase 1;
 5. train: full-width FSF training at batch 1 on the seed-0 bench scene with
    its own GT, through ``parallel.train.train_step`` (AdamW, lr 1e-4 over
    100 steps, the segmentor core at 0.2): two warm-up steps, then five
@@ -35,7 +43,7 @@ Phases, each of which ends the script with a non-zero exit on failure:
    finite and fall, and every major submodule must get a gradient. One more
    step's backward calls of K1 (input gradients) and of ``dw_per_tap``
    (weight gradients) are captured and held to their plain versions on the
-   card, each timed by CUDA-graph replay (``dw_per_tap``'s work list also
+   card (its forward's 16 ``fsf::segment_sum`` calls replayed as in phase 1), each timed by CUDA-graph replay (``dw_per_tap``'s work list also
    held to its plain version, with each call's ``tile_fill`` and a
    ``torch.bmm`` yardstick, ``bmm_ms``), then ``dw_per_tap`` runs
    adversarial rulebooks (every hit in one row tile among them). Before all
@@ -106,10 +114,12 @@ Phases, each of which ends the script with a non-zero exit on failure:
    the seed-0 scene's active voxels per UNet stage beside the caps; four
    requests (seeds 0, 1, 2, 0; the repeat bitwise equal; K1, K2 and K3
    launched in each; ``input_ms`` the host's conversion and copy of the
-   points and the packed mask planes); every K1, K2 and K3 call of one held
-   to its plain version and graph-timed, none below its bound (K3 at C =
-   26); two warm-up and three timed train steps on the seed-0 scene and its
-   48 GT boxes, the backward's K1 and ``dw_per_tap`` calls held; then the
+   points and the packed mask planes; ``FSF_SEGMENT_SUMS`` segment sums
+   each); every K1, K2 and K3 call of one held to its plain version and
+   graph-timed, none below its bound (K3 at C = 26), and every segment sum
+   of one as in phase 1; two warm-up and three timed train steps on the
+   seed-0 scene and its 48 GT boxes, the backward's K1 and ``dw_per_tap``
+   calls held; then the
    normal entry point: the scene written as an AV2 info pickle and
    ``.bin``, read by ``data.av2.AV2Reader``, collated by
    ``data.pipelines.collate_scene``, served, turned into AV2 rows
@@ -228,9 +238,10 @@ Phases, each of which ends the script with a non-zero exit on failure:
    before and read just after: every loss finite, the last below the
    first and the mean of the last 20 below the first 20's, every step after
    the third within 2 % of the third's peak allocated MiB, the launches 26
-   / 1 / 0 / 13 (K1, K2, K3, ``dw_per_tap``) on every step; the slowest
-   step and optimizer phase reported; then one more step's backward K1 and
-   ``dw_per_tap`` calls held to their plain versions and timed. The
+   / 1 / 0 / 13 / 16 (K1, K2, K3, ``dw_per_tap``, ``segment_sum``) on
+   every step; the slowest step and optimizer phase reported; then one more
+   step's backward K1 and ``dw_per_tap`` calls held to their plain versions
+   and timed. The
    artifact goes to ``--descent-out`` (default: a temporary directory).
 
     python3 chip_smoke.py --descent-out docs/h100_fsf_training_descent.json
@@ -367,10 +378,11 @@ def capture_results(module, name: str, sink: list):
 
 def kernel_wrappers() -> dict:
     """Each kernel's wrapper, which counts its launches in ``.launches``."""
-    from fullysparsefusion_tpu_torch.ops import ccl, nms, sparse_conv
+    from fullysparsefusion_tpu_torch.ops import ccl, nms, segment, sparse_conv
 
     return {"gather_conv": sparse_conv.gather_conv, "ccl_roots": ccl.ccl_roots,
-            "nms_keep": nms.nms_keep, "dw_per_tap": sparse_conv.dw_per_tap}
+            "nms_keep": nms.nms_keep, "dw_per_tap": sparse_conv.dw_per_tap,
+            "segment_sum": segment.segment_sum}
 
 
 def counts(wrappers) -> dict:
@@ -663,6 +675,124 @@ def large_nms_keep():
          "ms": round(time_ms(functools.partial(nms.nms_keep, iou, order, vs, 0.5), 5), 5)})
 
 
+# fsf::segment_sum at Argoverse 2's shapes. The foreground's pre-voxelisation:
+# 131,072 rows, ~67,000 of them invalid (the trash run), the rest over 60,000
+# keys into 98,304 segments, at the widths of its five means. The clusters:
+# 24,576 rows into 1,024 segments, sizes skewed to ~2,000 rows in the largest
+# and ~1,400 keys (overflow past the capacity), at the widths of the cluster
+# means, width 3 as a strided view of 4-wide rows (as the VFE's xyz is).
+SEGMENT_PREVOX = dict(rows=131072, capacity=98304, invalid=67000, keys=60000,
+                      widths=(4, 27, 81, 128))
+SEGMENT_CLUSTERS = dict(rows=24576, capacity=1024, invalid=2458, keys=1400, widths=(1, 3))
+# segment_sum launches in one FSF request and in one train step (both
+# configurations): the VFE's mean, the camera queries' weighted centres, five
+# pre-voxel means, one cluster-voxel mean per class group (six), three cluster means
+FSF_SEGMENT_SUMS = 16
+
+
+def segment_sum_bytes(width: int, offsets) -> float:
+    """fsf::segment_sum's least bytes: each valid row's ``width`` f32 read
+    and its ``order`` entry, each segment's row written and its offset."""
+    capacity, valid = offsets.shape[0] - 1, int(offsets[-1])
+    return 4.0 * (valid * (width + 1) + capacity * width + capacity + 1)
+
+
+def index_put_sum(feat, seg_id, capacity):
+    """The library call that fsf::segment_sum replaced on the main path:
+    ``index_put_(accumulate=True)`` into ``capacity + 1`` rows."""
+    out = feat.new_zeros((capacity + 1,) + feat.shape[1:])
+    out.index_put_((seg_id.long(),), feat, accumulate=True)
+    return out[:capacity]
+
+
+def replay_segment_sum(seg, feat, what: str, **tags) -> dict:
+    """One segment sum through ``seg`` (a ``SegmentInfo`` with its CSR) on
+    the card: twice bitwise equal, bitwise the plain version on the CPU, one
+    launch and no host sync (``torch.cuda.set_sync_debug_mode``), the bare-id
+    form bitwise the same; graph-timed beside its byte bound and
+    ``index_put_sum`` (``library_ms``); the plain version's host ms."""
+    from fullysparsefusion_tpu_torch.ops import segment
+
+    cap = seg.capacity
+    before = segment.segment_sum.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = seg.sum(feat)
+        again = seg.sum(feat)
+        bare = segment.segment_sum(feat, seg.seg_id, cap)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    if segment.segment_sum.launches - before != 3:
+        fail(f"segment_sum {what}: {segment.segment_sum.launches - before} launches for 3 calls")
+    t0 = time.perf_counter()
+    ref = segment.segment_sum_plain(feat.cpu(), seg.seg_id.cpu(), cap)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    for name, x in (("a repeat", again), ("the bare-id form", bare), ("the plain version", ref)):
+        if not torch.equal(got.cpu(), x.cpu()):
+            fail(f"segment_sum {what}: differs from {name} at "
+                 f"{int((got.cpu() != x.cpu()).sum())} entries")
+    width = feat[0].numel()
+    bound_ms = segment_sum_bytes(width, seg.offsets) / PEAK_BYTES * 1e3
+    ms = time_ms(lambda: seg.sum(feat), 20)
+    hold_bound(f"segment_sum {what}", ms, bound_ms)
+    res = dict(ms=ms, bound_ms=bound_ms, plain_ms=plain_ms,
+               library_ms=time_ms(lambda: index_put_sum(feat, seg.seg_id, cap), 5))
+    log({"phase": "segment_sum_call", "what": what, **tags, "rows": feat.shape[0],
+         "width": width, "row_stride": feat.stride(0), "capacity": cap,
+         "valid_rows": int(seg.offsets[-1]), "segments": int(seg.num_segments),
+         "largest": int(seg.counts.max()),
+         **{k: round(v, 5) for k, v in res.items()},
+         "share_of_bound": round(bound_ms / ms, 4), "bitwise": True})
+    return res
+
+
+def replay_request_sums(sums, what: str, shape: str, phase: str) -> dict:
+    """The ``FSF_SEGMENT_SUMS`` ``SegmentInfo.sum`` calls of one FSF request
+    or train step's forward, as ``capture_calls`` recorded them, each through
+    ``replay_segment_sum``; logs their totals as ``phase``, returns them."""
+    if len(sums) != FSF_SEGMENT_SUMS:
+        fail(f"one {what} made {len(sums)} segment sums, not {FSF_SEGMENT_SUMS}")
+    with torch.inference_mode():
+        per_call = [replay_segment_sum(seg, feat.detach(), f"{what} call {i}", shape=shape)
+                    for i, (seg, feat) in enumerate(sums)]
+    tot = {k: sum(r[k] for r in per_call) for k in per_call[0]}
+    log({"phase": phase, "calls": len(per_call), **{k: round(v, 5) for k, v in tot.items()}})
+    return tot
+
+
+def segment_sum_phase() -> dict:
+    """fsf::segment_sum at ``SEGMENT_PREVOX``'s and ``SEGMENT_CLUSTERS``'
+    shapes, ids from ``unique_segments`` on the card (``replay_segment_sum``
+    for each width). Returns the totals of each shape."""
+    from fullysparsefusion_tpu_torch.ops import segment
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    totals = {}
+    for name, case in (("prevox", SEGMENT_PREVOX), ("clusters", SEGMENT_CLUSTERS)):
+        n = case["rows"]
+        valid = torch.randperm(n, generator=gen, device="cuda") >= case["invalid"]
+        u = torch.rand(n, generator=gen, device="cuda")
+        if name == "clusters":
+            u = u ** 3                  # skewed: the first keys hold the largest clusters
+        keys = (u * case["keys"]).to(torch.int32)
+        seg = segment.unique_segments(keys, valid, case["capacity"])
+        tot = dict(ms=0.0, bound_ms=0.0, plain_ms=0.0, library_ms=0.0)
+        for w in case["widths"]:
+            if name == "clusters" and w == 3:
+                feat = torch.randn(n, 4, generator=gen, device="cuda")[:, :3]
+            else:
+                feat = torch.randn((n, w) if w > 1 else (n,), generator=gen, device="cuda")
+            res = replay_segment_sum(seg, feat, f"{name} width {w}", shape=name)
+            for k in tot:
+                tot[k] += res[k]
+        totals[name] = tot
+    log({"phase": "segment_sum", "totals": {k: {m: round(v, 5) for m, v in t.items()}
+                                            for k, t in totals.items()},
+         "seconds": round(time.perf_counter() - t0, 3)})
+    return totals
+
+
 def gather_conv_cost(feats, rows, w):
     """K1's rulebook hits, FLOPs and bytes (each input read once, the output
     written once)."""
@@ -805,9 +935,16 @@ def replay_nms_keep(call, phase: str, **tags) -> dict:
 
 
 def check_kernels(model, request):
-    """Replay every kernel call of one request against its plain version."""
-    calls = capture_request(lambda: model.get_bboxes(model(*request, 1), 1))
-    results = {"gather_conv": replay_gather_conv(calls["gather_conv"], "kernel_calls")}
+    """Replay every kernel call of one request against its plain version
+    (``segment_sum``'s calls through ``replay_request_sums``)."""
+    from fullysparsefusion_tpu_torch.ops import segment
+
+    sums = []
+    with capture_calls(segment.SegmentInfo, "sum", sums):
+        calls = capture_request(lambda: model.get_bboxes(model(*request, 1), 1))
+    results = {"segment_sum": replay_request_sums(sums, "nuScenes request", "nusc_request",
+                                                  "nusc_segment_sum")}
+    results["gather_conv"] = replay_gather_conv(calls["gather_conv"], "kernel_calls")
     adversarial_gather_conv(*calls["gather_conv"][0][:3])
     (call,) = calls["ccl_roots"]
     results["ccl_roots"] = replay_ccl_roots(call, "kernel_calls")
@@ -2123,7 +2260,6 @@ def sst_inputs(cfg, device="cuda"):
     the FSD ``point_cloud_range``): each pillar's mean point channels, its
     (x, y, z) coords, batch ids and validity, capped at the bench's voxel
     capacity. Returns (feats, coords, batch, valid, points in range)."""
-    from fullysparsefusion_tpu_torch.ops.segment import segment_mean
     from fullysparsefusion_tpu_torch.ops.voxelize import voxelize_points
 
     pb, _ = fsd_scene(0, cfg, device)
@@ -2131,7 +2267,7 @@ def sst_inputs(cfg, device="cuda"):
     size = ((r[3] - r[0]) / 512, (r[4] - r[1]) / 512, r[5] - r[2])
     cap = bench_config().fsd.caps.voxels
     seg, _, batch, coords = voxelize_points(pb.xyz, pb.batch_idx, pb.valid, size, r, cap)
-    feats = segment_mean(pb.points, seg.seg_id, cap, counts=seg.counts)
+    feats = seg.mean(pb.points)
     return feats, coords, batch, seg.seg_valid, int(seg.num_segments)
 
 
@@ -2572,7 +2708,8 @@ def av2_serve(model, requests, wrappers) -> dict:
                 fail(f"AV2 request seed {seed}: non-finite {name}")
         if det.valid.shape != (1, model.cfg.refined_head.max_num) or det.boxes.shape[-1] != 7:
             fail(f"AV2 request seed {seed}: detections shape {tuple(det.boxes.shape)}")
-        if min(launches[-1][k] for k in ("gather_conv", "ccl_roots", "nms_keep")) <= 0:
+        if min(launches[-1][k] for k in ("gather_conv", "ccl_roots", "nms_keep")) <= 0 \
+                or launches[-1]["segment_sum"] != FSF_SEGMENT_SUMS:
             fail(f"AV2 request seed {seed}: launches {launches[-1]}")
         fsd = res["fsd"]
         per_group = torch.bincount(fsd["cluster_group"][fsd["cluster_valid"]].long(),
@@ -2603,10 +2740,16 @@ def av2_check_kernels(model, request, phase: str = "av2_kernels") -> dict:
     (K1 within ``K1_RTOL``, K2 and K3 bitwise) and graph-timed, each beside
     its bound (K3 at C = 26). ``phase`` names the summary line; the calls'
     lines take it with ``kernels`` read as ``kernel_calls``."""
+    from fullysparsefusion_tpu_torch.ops import segment
+
     t0 = time.perf_counter()
     calls_phase = phase.replace("kernels", "kernel_calls")
-    calls = capture_request(lambda: model.get_bboxes(model(*request, 1), 1))
-    results = {"gather_conv": replay_gather_conv(calls["gather_conv"], calls_phase)}
+    sums = []
+    with capture_calls(segment.SegmentInfo, "sum", sums):
+        calls = capture_request(lambda: model.get_bboxes(model(*request, 1), 1))
+    results = {"segment_sum": replay_request_sums(sums, "AV2 request", "av2_request",
+                                                  "av2_segment_sum")}
+    results["gather_conv"] = replay_gather_conv(calls["gather_conv"], calls_phase)
     for c in results["gather_conv"]["calls"]:
         hold_bound(f"AV2 K1 [{c['n_out']} x {c['cin']} -> {c['cout']}]", c["ms"], c["bound_ms"])
     (call,) = calls["ccl_roots"]
@@ -4121,7 +4264,8 @@ DESCENT_WINDOW = 20
 DESCENT_MEM_STEP, DESCENT_MEM_RTOL = 3, 0.02
 # launches per full-width FSF train step: K1 13 forward + 13 d_feats, K2 once,
 # dw_per_tap 13, no decode
-DESCENT_LAUNCHES = {"gather_conv": 26, "ccl_roots": 1, "nms_keep": 0, "dw_per_tap": 13}
+DESCENT_LAUNCHES = {"gather_conv": 26, "ccl_roots": 1, "nms_keep": 0, "dw_per_tap": 13,
+                    "segment_sum": FSF_SEGMENT_SUMS}
 MULTIHOST_STEPS = 3
 
 
@@ -4336,6 +4480,9 @@ KERNEL_INFO = {
     # no Pallas kernel: the JAX package's d_w is XLA's per-tap gather + matmul
     "dw_per_tap": ("fullysparsefusion_tpu_torch/csrc/gather_conv_dw.cu",
                    "fullysparsefusion_tpu/ops/sparse_conv.py:380"),
+    # no Pallas kernel: the JAX package's segment sums are XLA's scatter-add
+    "segment_sum": ("fullysparsefusion_tpu_torch/csrc/segment.cu",
+                    "fullysparsefusion_tpu/ops/segment.py:221"),
 }
 
 
@@ -4349,6 +4496,7 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU", file=sys.stderr)
         return 1
+    from fullysparsefusion_tpu_torch.ops import segment
     from fullysparsefusion_tpu_torch.weights import build_fsf
 
     # comparisons in f32 mean f32: no TF32 in cuBLAS or cuDNN
@@ -4357,6 +4505,7 @@ def main(argv=None) -> int:
     t_start = time.perf_counter()
 
     build_kernels()
+    segment_totals = segment_sum_phase()
     small_reference_check()
     small_train_reference_check()
     small_fsd_reference_check()
@@ -4388,12 +4537,17 @@ def main(argv=None) -> int:
             fail(f"re-run of request seed 0 changed {name}")
 
     stats = check_kernels(model, requests[0][1])
+    nusc_sums = stats.pop("segment_sum")
     del model, requests, dets
     torch.cuda.empty_cache()
 
     model, opt, batch = train_setup(cfg)
     train_launches, k1_per_step = train(model, opt, batch, wrappers)
-    train_stats = check_train_kernels(model, opt, batch, TRAIN_WARMUP + TRAIN_STEPS)
+    train_sums = []
+    with capture_calls(segment.SegmentInfo, "sum", train_sums):
+        train_stats = check_train_kernels(model, opt, batch, TRAIN_WARMUP + TRAIN_STEPS)
+    train_sums = replay_request_sums(train_sums, "nuScenes train step's forward",
+                                     "nusc_train_forward", "train_segment_sum")
     adversarial_dw_per_tap()
     stats["dw_per_tap"] = train_stats["dw_per_tap"]
     launches["dw_per_tap"] = train_launches["dw_per_tap"]
@@ -4486,6 +4640,17 @@ def main(argv=None) -> int:
         if name == "nms_keep":
             entry["tta"] = nusc["tta"]
         entries.append(entry)
+    source, replaces = KERNEL_INFO["segment_sum"]
+    entries.append({"name": "segment_sum", "route": "cuda", "source": source,
+                    "replaces": replaces, "launches": launches["segment_sum"],
+                    "max_abs_err": 0.0, **{k: {m: round(v, 5) for m, v in t.items()}
+                                           for k, t in segment_totals.items()},
+                    "nusc_request": nusc_sums, "nusc_train_forward": train_sums,
+                    "av2_request": av2["stats"]["segment_sum"],
+                    "train_launches_per_step": train_launches["segment_sum"] / TRAIN_STEPS,
+                    "av2_launches_per_request": av2["per_request"]["segment_sum"],
+                    "av2_train_launches_per_step": av2["train_per_step"]["segment_sum"],
+                    "descent_launches_per_step": descent["segment_sum"]})
     log({"phase": "total", "seconds": round(time.perf_counter() - t_start, 3)})
     log({"kernels": entries})
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

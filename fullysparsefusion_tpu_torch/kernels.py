@@ -24,7 +24,7 @@ _PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "torch_kernels")
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 
 # name -> (source file, extra nvcc flags, C symbol, argtypes); names that
 # share a source and flags share one library
@@ -41,6 +41,8 @@ KERNELS = {
             [_P, _P, _P, _I, _I, _P, _P, _P, _P]),
     "nms": ("nms.cu", [], "fsf_nms_keep",
             [_P, _P, _P, _I, _I, _F, _P, _P, _P]),
+    "segment_sum": ("segment.cu", [], "fsf_segment_sum",
+                    [_P, _L, _I, _P, _P, _I, _P, _P]),
 }
 
 _BASE_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -15,7 +15,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.projection import points_in_mask_compact
-from ..ops.segment import SegmentInfo, segment_sum, unique_segments
+from ..ops.segment import SegmentInfo, unique_segments
 from ..utils.containers import CameraData  # noqa: F401 (re-exported)
 from ..utils.gather import masked_gather
 from .layers import MLP
@@ -73,7 +73,7 @@ def weighted_cluster_centers(xyz, w, seg: SegmentInfo):
     """Foreground-probability-weighted per-instance centers; the weights
     carry no gradient."""
     w = w.detach().clamp(min=1e-5)[:, None]
-    sw = segment_sum(torch.cat([xyz * w, w], dim=1), seg.seg_id, seg.capacity)
+    sw = seg.sum(torch.cat([xyz * w, w], dim=1))
     return sw[:, :3] / sw[:, 3:4].clamp(min=1e-6)
 
 

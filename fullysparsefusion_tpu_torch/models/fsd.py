@@ -19,7 +19,7 @@ from torch import nn
 from ..config import FSDConfig
 from ..ops.ccl import connected_components_bev, connected_components_bev_batched
 from ..ops.fps import ssg_cluster
-from ..ops.segment import SegmentInfo, segment_mean, unique_segments
+from ..ops.segment import SegmentInfo, unique_segments
 from ..ops.voxelize import grid_dims, linearize_coords, voxel_coords, voxelize_points
 from ..utils.containers import GroundTruth, PointBatch
 from ..utils.gather import masked_gather
@@ -90,7 +90,7 @@ def _cluster_voxelize_group(centers, batch_idx, valid, group_id: int, cfg: FSDCo
     cnt_per_point = seg.counts[seg.seg_id.clamp(0, vcap - 1).long()]
     ok = ok & (cnt_per_point >= cfg.min_cluster_points)
     vox_nonempty = seg.seg_valid & (seg.counts >= cfg.min_cluster_points)
-    vox_centers = segment_mean(centers, seg.seg_id, vcap, counts=seg.counts)
+    vox_centers = seg.mean(centers)
     return seg, ok, vox_centers, vox_nonempty
 
 
@@ -103,8 +103,7 @@ def cluster_one_group(centers, batch_idx, valid, group_id: int, cfg: FSDConfig):
     vcap = cfg.caps.cluster_voxels_per_group
     seg, ok, vox_centers, vox_nonempty = _cluster_voxelize_group(
         centers, batch_idx, valid, group_id, cfg)
-    vox_batch = segment_mean(batch_idx.float(), seg.seg_id, vcap, counts=seg.counts
-                             ).to(torch.int32)
+    vox_batch = seg.mean(batch_idx.float()).to(torch.int32)
     labels_vox = connected_components_bev(vox_centers, vox_batch, vox_nonempty,
                                           cfg.connected_dists[group_id])
     lab = labels_vox[seg.seg_id.clamp(0, vcap - 1).long()]
@@ -203,8 +202,7 @@ class FSDQueryBranch(nn.Module):
             pvseg, _, pv_batch, _ = voxelize_points(
                 pb.xyz, pb.batch_idx, seg_out["valid"], c.pre_voxel_size,
                 c.segmentor.point_cloud_range, c.caps.prevox)
-            red = {k: segment_mean(v, pvseg.seg_id, c.caps.prevox, counts=pvseg.counts)
-                   for k, v in data.items()}
+            red = {k: pvseg.mean(v) for k, v in data.items()}
             fg_masks, centers = group_sample(
                 red["logits"], red["offsets"], red["points"][:, :3], pvseg.seg_valid, c,
                 thresh_buffer, batch_idx=pv_batch, batch_size=batch_size)
@@ -234,12 +232,9 @@ class FSDQueryBranch(nn.Module):
             cseg = unique_segments(key, ok, c.caps.clusters)
             fg = fg._replace(valid=ok & (cseg.seg_id < c.caps.clusters))
 
-            def mean(x):
-                return segment_mean(x, cseg.seg_id, c.caps.clusters, counts=cseg.counts)
-
-            cluster_xyz = mean(fg.centers)
-            cluster_batch = mean(fg.batch_idx.float()).to(torch.int32)
-            cluster_group = mean(fg.group_idx.float()).to(torch.int32)
+            cluster_xyz = cseg.mean(fg.centers)
+            cluster_batch = cseg.mean(fg.batch_idx.float()).to(torch.int32)
+            cluster_group = cseg.mean(fg.group_idx.float()).to(torch.int32)
             return fg, cseg, cluster_xyz, cluster_batch, cluster_group, cseg.seg_valid
 
     def forward(self, pb: PointBatch, seg_out, batch_size: int, thresh_buffer=0.0):

@@ -21,7 +21,7 @@ import torch
 from torch import nn
 
 from ..ops.geometry import gravity_center, rotate_points_z
-from ..ops.segment import SegmentInfo, segment_max
+from ..ops.segment import segment_max
 from ..utils.gather import masked_gather
 from .vfe import SIRLayer
 
@@ -220,22 +220,16 @@ class FullySparseBboxHead(nn.Module):
         self.out_dim = sum(sum(c) for c in feat_channels[:num_blocks])
 
     def forward(self, points, feats, geometry, roi_idx, valid, num_rois: int):
-        dev = points.device
-        seg = SegmentInfo(
-            seg_id=torch.where(valid, roi_idx, torch.full_like(roi_idx, num_rois)),
-            unique_keys=torch.arange(num_rois, dtype=torch.int32, device=dev),
-            counts=torch.zeros(num_rois, dtype=torch.int32, device=dev),
-            num_segments=torch.tensor(num_rois, dtype=torch.int32, device=dev),
-            seg_valid=torch.ones(num_rois, dtype=torch.bool, device=dev),
-        )
-        norm = torch.tensor(self.xyz_normalizer, dtype=points.dtype, device=dev)
+        seg_id = torch.where(valid, roi_idx, torch.full_like(roi_idx, num_rois))
+        norm = torch.tensor(self.xyz_normalizer, dtype=points.dtype, device=points.device)
         pts = torch.cat([points[:, :3] / norm, points[:, 3:]], dim=1)
         out_feats = feats
         clusters = []
         for i in range(self.num_blocks):
             out_feats, c = getattr(self, f"SIRLayer_{i}")(
-                torch.cat([pts, out_feats, geometry / 10.0], dim=1), geometry, seg, valid)
+                torch.cat([pts, out_feats, geometry / 10.0], dim=1), geometry, seg_id, num_rois,
+                valid)
             clusters.append(c)
         roi_feats = torch.cat(clusters, dim=1)
-        nonempty = segment_max(valid.float(), seg.seg_id, num_rois) > 0
+        nonempty = segment_max(valid.float(), seg_id, num_rois) > 0
         return roi_feats * nonempty[:, None], nonempty

@@ -33,6 +33,6 @@ class SIR(nn.Module):
         clusters = []
         for i in range(self.num_blocks):
             out_feats, c = getattr(self, f"SIRLayer_{i}")(
-                torch.cat([pts, out_feats], dim=1), f_cluster, seg, valid)
+                torch.cat([pts, out_feats], dim=1), f_cluster, seg.seg_id, seg.capacity, valid)
             clusters.append(c)
         return out_feats, torch.cat(clusters, dim=1)

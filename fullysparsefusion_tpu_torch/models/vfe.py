@@ -7,15 +7,15 @@ from typing import Sequence
 import torch
 from torch import nn
 
-from ..ops.segment import SegmentInfo, segment_max, segment_mean
+from ..ops.segment import SegmentInfo, segment_max
 from .layers import MLP, Norm, get_activation
 
 # SIR divides the relative-position features by this before its position MLP
 REL_DIST_SCALER = 10.0
 
 
-def _back(seg: SegmentInfo) -> torch.Tensor:
-    return seg.seg_id.clamp(0, seg.capacity - 1).long()
+def _back(seg_id: torch.Tensor, capacity: int) -> torch.Tensor:
+    return seg_id.clamp(0, capacity - 1).long()
 
 
 class DynamicVFELayer(nn.Module):
@@ -49,8 +49,8 @@ class DynamicScatterVFE(nn.Module):
 
     def forward(self, points, seg: SegmentInfo, voxel_coords, valid):
         xyz = points[:, :3]
-        back = _back(seg)
-        mean_xyz = segment_mean(xyz, seg.seg_id, seg.capacity, counts=seg.counts)
+        back = _back(seg.seg_id, seg.capacity)
+        mean_xyz = seg.mean(xyz)
         vs = torch.tensor(self.voxel_size, dtype=xyz.dtype, device=xyz.device)
         lo = torch.tensor(self.pc_range_min, dtype=xyz.dtype, device=xyz.device)
         centers = voxel_coords.to(xyz.dtype) * vs + vs * 0.5 + lo
@@ -66,8 +66,9 @@ class DynamicScatterVFE(nn.Module):
 
 
 class SIRLayer(nn.Module):
-    """One SIR block: rel-pos-modulated PointNet over segments. Returns
-    (point feats [N, c_last], group feats [cap, Σc])."""
+    """One SIR block: rel-pos-modulated PointNet over segments (``seg_id``
+    [N] i32 in ``[0, capacity]``, ``capacity`` the trash). Returns (point
+    feats [N, c_last], group feats [capacity, Σc])."""
 
     def __init__(self, in_dim: int, rel_dim: int, feat_channels: Sequence[int] = (128, 128),
                  rel_mlp_hidden_dims: Sequence[int] = (16, 32)):
@@ -83,15 +84,15 @@ class SIRLayer(nn.Module):
         self.out_point_dim = feat_channels[-1]
         self.out_group_dim = sum(feat_channels)
 
-    def forward(self, in_feats, rel_feats, seg: SegmentInfo, valid):
+    def forward(self, in_feats, rel_feats, seg_id, capacity: int, valid):
         vmask = valid[:, None].to(in_feats.dtype)
         pe = self.MLP_0(rel_feats / REL_DIST_SCALER, valid)
         x = in_feats * pe * vmask
-        back = _back(seg)
+        back = _back(seg_id, capacity)
         groups = []
         for i in range(self.n_layers):
             x = getattr(self, f"DynamicVFELayer_{i}")(x, valid) * vmask
-            g = segment_max(x, seg.seg_id, seg.capacity)
+            g = segment_max(x, seg_id, capacity)
             groups.append(g)
             if i != self.n_layers - 1:
                 x = torch.cat([x, g[back]], dim=1) * vmask

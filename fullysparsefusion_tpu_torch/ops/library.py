@@ -11,7 +11,13 @@ op                    CUDA (``csrc/``)                       CPU (plain version)
 ``fsf::gather_conv_dw`` ``gather_conv_dw.cu``                ``sparse_conv.dw_per_tap_plain``
 ``fsf::ccl_roots``    ``ccl.cu`` (K2)                        ``ccl.ccl_roots_plain``
 ``fsf::nms_keep``     ``nms.cu`` (K3)                        ``nms.nms_keep_plain``
+``fsf::segment_sum``  ``segment.cu``                         ``segment.segment_sum_plain``
 ====================  =====================================  ==========================
+
+``fsf::segment_sum`` adds each segment's rows in ascending row order, from 0,
+in f32, on both devices: the kernel equals the plain version bitwise. Its
+gradient (``register_autograd``) is the gather of the output's gradient by
+segment id, 0 for the trash rows.
 
 The dispatcher picks the implementation by the inputs' device: a CUDA
 tensor runs the kernel, a CPU tensor the plain version, and nothing else
@@ -22,7 +28,10 @@ them. The public wrappers (``sparse_conv.gather_conv`` / ``dw_per_tap`` /
 and devices and call these ops; the checks that need storage (contiguity,
 16-byte alignment) are here, in the CUDA implementations, which also count
 each launch on the wrapper's ``.launches``, so an exported program's
-launches count too.
+launches count too. ``segment.segment_sum`` / ``segment_mean`` and
+``SegmentInfo.sum`` / ``mean`` call ``fsf::segment_sum``, whose CUDA
+implementation checks the dtypes (f32 rows, int32 CSR) and counts on
+``segment.segment_sum.launches``.
 
 This module imports no model code: a serving process imports it alone to
 load and run an exported ``.pt2`` (it also registers the containers of
@@ -30,20 +39,22 @@ load and run an exported ``.pt2`` (it also registers the containers of
 """
 from __future__ import annotations
 
+import math
 from typing import Dict
 
 import torch
 
 from .. import kernels
 from ..utils import containers  # noqa: F401 (the containers as pytree nodes)
-from . import ccl, nms, sparse_conv
+from . import ccl, nms, segment, sparse_conv
 
 
 def kernel_launches() -> Dict[str, int]:
     """The kernels' launch counters (each CUDA implementation counts its
     launches on its wrapper)."""
     return {"gather_conv": sparse_conv.gather_conv.launches, "ccl_roots": ccl.ccl_roots.launches,
-            "nms_keep": nms.nms_keep.launches, "dw_per_tap": sparse_conv.dw_per_tap.launches}
+            "nms_keep": nms.nms_keep.launches, "dw_per_tap": sparse_conv.dw_per_tap.launches,
+            "segment_sum": segment.segment_sum.launches}
 
 
 def launches_since(before: Dict[str, int]) -> Dict[str, int]:
@@ -213,3 +224,56 @@ def _nms_keep_cuda(iou, order, valid_sorted, iou_thr):
 @nms_keep.register_fake
 def _nms_keep_fake(iou, order, valid_sorted, iou_thr):
     return valid_sorted.new_empty(order.shape)
+
+
+# ---------------------------------------------------------------------------
+# Sorted segment sum
+# ---------------------------------------------------------------------------
+
+
+@torch.library.custom_op("fsf::segment_sum", mutates_args=(), device_types="cpu")
+def segment_sum(feat: torch.Tensor, seg_id: torch.Tensor, order: torch.Tensor,
+                offsets: torch.Tensor) -> torch.Tensor:
+    """Rows of ``feat`` summed by ``seg_id`` → [capacity, ...], capacity =
+    ``len(offsets) - 1``, the trash id ``capacity`` dropped (the CSR
+    ``order`` / ``offsets`` is the kernel's; the plain version needs
+    neither)."""
+    return segment.segment_sum_plain(feat, seg_id, offsets.shape[0] - 1)
+
+
+@segment_sum.register_kernel("cuda")
+def _segment_sum_cuda(feat, seg_id, order, offsets):
+    if feat.dtype != torch.float32 or order.dtype != torch.int32 \
+            or offsets.dtype != torch.int32:
+        raise TypeError("segment_sum takes f32 feat and int32 order and offsets on a CUDA "
+                        f"tensor, not {feat.dtype}, {order.dtype}, {offsets.dtype}")
+    _contiguous("segment_sum", order, offsets)
+    n, cap = feat.shape[0], offsets.shape[0] - 1
+    width = math.prod(feat.shape[1:])
+    rows = feat.reshape(n, width)
+    if width > 1 and rows.stride(1) != 1:
+        rows = rows.contiguous()
+    out = torch.empty((cap,) + feat.shape[1:], dtype=torch.float32, device=feat.device)
+    if out.numel():
+        kernels.launch("segment_sum", rows.data_ptr(), rows.stride(0), width, order.data_ptr(),
+                       offsets.data_ptr(), cap, out.data_ptr(), _stream(feat))
+        segment.segment_sum.launches += 1
+    return out
+
+
+@segment_sum.register_fake
+def _segment_sum_fake(feat, seg_id, order, offsets):
+    return feat.new_empty((offsets.shape[0] - 1,) + feat.shape[1:])
+
+
+def _segment_sum_setup(ctx, inputs, output):
+    ctx.save_for_backward(inputs[1])
+
+
+def _segment_sum_backward(ctx, grad):
+    (seg_id,) = ctx.saved_tensors
+    padded = torch.cat([grad, grad.new_zeros((1,) + grad.shape[1:])])
+    return padded[seg_id.long()], None, None, None
+
+
+segment_sum.register_autograd(_segment_sum_backward, setup_context=_segment_sum_setup)

@@ -3,8 +3,19 @@
 ``unique_segments(keys, valid, capacity)`` sorts the masked int32 keys once
 and gives each element a compact segment id in ``[0, capacity)``, in
 ascending key order; invalid elements and overflow segments go to the trash
-segment ``capacity``, so reductions allocate ``capacity + 1`` rows and drop
-the last. Same contract as the JAX package's ``ops/segment.py``.
+segment ``capacity``, which no reduction returns. Same contract as the JAX
+package's ``ops/segment.py``.
+
+Sums and means go through the op ``fsf::segment_sum`` (``ops/library.py``):
+on a CUDA tensor the kernel of ``csrc/segment.cu``, on a CPU tensor
+:func:`segment_sum_plain`. Both add each segment's rows in ascending row
+order, from 0, in f32, so the two agree bitwise and a repeat is bitwise. The
+kernel reads the segments as CSR: ``order``, the rows stably sorted by
+segment id (the trash rows last, never read), and ``offsets``, where segment
+``s`` is ``order[offsets[s]:offsets[s + 1]]``. ``unique_segments`` keeps both
+from its own sort (:meth:`SegmentInfo.sum` / :meth:`SegmentInfo.mean`);
+:func:`segment_sum` / :func:`segment_mean` take bare ids and make them with
+one stable sort. Neither reads anything back to the host.
 """
 from __future__ import annotations
 
@@ -21,17 +32,29 @@ INVALID_KEY = torch.iinfo(torch.int32).max
 class SegmentInfo:
     """seg_id [N] i32 (``capacity`` = trash), unique_keys [capacity] i32
     (INVALID_KEY for unused slots), counts [capacity] i32, num_segments []
-    i32 (may exceed capacity), seg_valid [capacity] bool."""
+    i32 (may exceed capacity), seg_valid [capacity] bool; the CSR of
+    ``seg_id`` that :meth:`sum` and :meth:`mean` read: order [N] i32 and
+    offsets [capacity + 1] i32."""
 
     seg_id: torch.Tensor
     unique_keys: torch.Tensor
     counts: torch.Tensor
     num_segments: torch.Tensor
     seg_valid: torch.Tensor
+    order: torch.Tensor
+    offsets: torch.Tensor
 
     @property
     def capacity(self) -> int:
         return self.unique_keys.shape[0]
+
+    def sum(self, feat: torch.Tensor) -> torch.Tensor:
+        """Sum-reduce rows of ``feat`` by segment → [capacity, ...]."""
+        return torch.ops.fsf.segment_sum(feat, self.seg_id, self.order, self.offsets)
+
+    def mean(self, feat: torch.Tensor) -> torch.Tensor:
+        """Mean-reduce rows of ``feat`` by segment (empty segments → 0)."""
+        return _mean(self.sum(feat), self.counts)
 
 
 def _boundaries(ks: torch.Tensor) -> torch.Tensor:
@@ -58,6 +81,7 @@ def unique_segments(keys: torch.Tensor, valid: torch.Tensor, capacity: int) -> S
                              torch.full_like(ranks, capacity))
     seg_id = torch.empty(n, dtype=torch.int32, device=keys.device)
     seg_id[order] = seg_sorted
+    offsets = _offsets(seg_sorted, capacity)
     unique_keys = torch.full((capacity + 1,), INVALID_KEY, dtype=torch.int32,
                              device=keys.device)
     unique_keys[seg_sorted.long()] = ks
@@ -69,6 +93,8 @@ def unique_segments(keys: torch.Tensor, valid: torch.Tensor, capacity: int) -> S
         counts=counts.to(torch.int32),
         num_segments=num_segments,
         seg_valid=unique_keys != INVALID_KEY,
+        order=order.to(torch.int32),
+        offsets=offsets,
     )
 
 
@@ -102,25 +128,53 @@ def _counts(seg_id: torch.Tensor, capacity: int) -> torch.Tensor:
     return torch.bincount(seg_id.long(), minlength=capacity + 1)[:capacity]
 
 
+def _offsets(sorted_ids: torch.Tensor, capacity: int) -> torch.Tensor:
+    """[capacity + 1] i32: where each segment's run starts in ascending
+    int32 ids (the last entry: where the trash run starts)."""
+    bounds = torch.arange(capacity + 1, dtype=torch.int32, device=sorted_ids.device)
+    return torch.searchsorted(sorted_ids, bounds, out_int32=True)
+
+
+def _csr(seg_id: torch.Tensor, capacity: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(order [N] i32, offsets [capacity + 1] i32) of ids in ``[0,
+    capacity]``: one stable sort."""
+    ids, order = torch.sort(seg_id.to(torch.int32), stable=True)
+    return order.to(torch.int32), _offsets(ids, capacity)
+
+
+def segment_sum_plain(feat: torch.Tensor, seg_id: torch.Tensor, capacity: int) -> torch.Tensor:
+    """Plain version of ``fsf::segment_sum``: ``index_add_`` into ``capacity +
+    1`` rows, the trash row dropped. On the CPU it adds the rows one by one
+    in row order, so each segment's sum runs in ascending row order from 0,
+    whatever the thread count (``index_put_(accumulate=True)`` adds with
+    atomics from several threads past 32,768 elements)."""
+    out = feat.new_zeros((capacity + 1,) + feat.shape[1:])
+    return out.index_add_(0, seg_id.long(), feat)[:capacity]
+
+
 def segment_sum(feat: torch.Tensor, seg_id: torch.Tensor, capacity: int) -> torch.Tensor:
     """Sum-reduce rows of ``feat`` by segment id; returns [capacity, ...].
+    Each segment's rows are added in ascending row order, from 0, so a
+    request run twice gives bitwise the same output. Takes f32 on a CUDA
+    tensor (and raises on other dtypes there)."""
+    return torch.ops.fsf.segment_sum(feat, seg_id, *_csr(seg_id, capacity))
 
-    ``index_put_(accumulate=True)`` sorts the ids on CUDA and sums in a fixed
-    order (``index_add_`` uses float atomics), so a request run twice gives
-    bitwise the same output."""
-    out = feat.new_zeros((capacity + 1,) + feat.shape[1:])
-    out.index_put_((seg_id.long(),), feat, accumulate=True)
-    return out[:capacity]
+
+# counted by the op's CUDA implementation (ops/library.py), one per launch
+segment_sum.launches = 0
+
+
+def _mean(sums: torch.Tensor, counts: torch.Tensor) -> torch.Tensor:
+    denom = torch.clamp(counts.to(sums.dtype), min=1)
+    return sums / denom.view((-1,) + (1,) * (sums.dim() - 1))
 
 
 def segment_mean(feat: torch.Tensor, seg_id: torch.Tensor, capacity: int,
                  counts: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Mean-reduce rows of ``feat`` by segment id (empty segments → 0)."""
-    s = segment_sum(feat, seg_id, capacity)
     if counts is None:
         counts = _counts(seg_id, capacity)
-    denom = torch.clamp(counts.to(feat.dtype), min=1)
-    return s / denom.view((-1,) + (1,) * (feat.dim() - 1))
+    return _mean(segment_sum(feat, seg_id, capacity), counts)
 
 
 def _segment_extreme(feat, seg_id, capacity, empty_value, reduce):
@@ -160,3 +214,8 @@ def ingroup_indices(group_ids: torch.Tensor, valid: torch.Tensor) -> torch.Tenso
     inner = torch.empty(n, dtype=torch.int32, device=group_ids.device)
     inner[order] = pos - start
     return torch.where(valid, inner, torch.full_like(inner, -1))
+
+
+# registers the fsf ops; last, since the op library's modules import names of
+# this one
+from . import library  # noqa: E402,F401

@@ -6,7 +6,7 @@ from typing import Dict, Sequence, Tuple
 
 import torch
 
-from .segment import SegmentInfo, segment_mean, unique_segments
+from .segment import SegmentInfo, unique_segments
 
 
 def voxel_coords(xyz: torch.Tensor, voxel_size: Sequence[float],
@@ -81,5 +81,5 @@ def voxel_downsample(data: Dict[str, torch.Tensor], xyz, batch_idx, valid, voxel
     mean-reduced per voxel. Returns (reduced dict, voxel batch [capacity],
     voxel valid [capacity])."""
     seg, _, vox_batch, _ = voxelize_points(xyz, batch_idx, valid, voxel_size, pc_range, capacity)
-    out = {k: segment_mean(v, seg.seg_id, capacity, counts=seg.counts) for k, v in data.items()}
+    out = {k: seg.mean(v) for k, v in data.items()}
     return out, vox_batch, seg.seg_valid

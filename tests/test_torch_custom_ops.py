@@ -18,7 +18,7 @@ import pytest
 import torch
 from torch._subclasses.fake_tensor import FakeTensor, FakeTensorMode
 
-from fullysparsefusion_tpu_torch.ops import ccl, library, nms, sparse_conv
+from fullysparsefusion_tpu_torch.ops import ccl, library, nms, segment, sparse_conv
 from test_torch_ddp_port import torch_one_thread  # noqa: F401 (autouse)
 
 K3 = 27
@@ -64,6 +64,14 @@ def _cases(name):
         valid = torch.tensor(rng.uniform(size=(g, n)) < 0.8)
         return [(library.ccl_roots, (xy, batch, valid), ccl.ccl_roots_plain(xy, batch, valid),
                  ccl.ccl_roots(xy, batch, valid), ccl.ccl_roots)]
+    if name == "segment_sum":
+        n, cap = 600, 40           # ~60 distinct keys: overflow; half the rows trash
+        keys = torch.tensor(rng.integers(0, 60, n), dtype=torch.int32)
+        seg = segment.unique_segments(keys, torch.tensor(rng.uniform(size=n) < 0.5), cap)
+        feat = torch.tensor(rng.normal(size=(n, 5)), dtype=torch.float32, requires_grad=True)
+        return [(library.segment_sum, (feat, seg.seg_id, seg.order, seg.offsets),
+                 segment.segment_sum_plain(feat, seg.seg_id, cap),
+                 segment.segment_sum(feat, seg.seg_id, cap), segment.segment_sum)]
     c, n = 4, 90
     iou = torch.tensor(rng.uniform(size=(n, n)), dtype=torch.float32)
     order = torch.tensor(np.stack([rng.permutation(n) for _ in range(c)]), dtype=torch.int32)
@@ -72,11 +80,13 @@ def _cases(name):
              nms.nms_keep(iou, order, vs, 0.5), nms.nms_keep)]
 
 
-@pytest.mark.parametrize("name", ["gather_conv", "dw_per_tap", "ccl_roots", "nms_keep"])
+@pytest.mark.parametrize("name", ["gather_conv", "dw_per_tap", "ccl_roots", "nms_keep",
+                                  "segment_sum"])
 def test_op_on_the_cpu_is_the_plain_version(name):
     launches = {k: getattr(f, "launches") for k, f in (
         ("gather_conv", sparse_conv.gather_conv), ("dw_per_tap", sparse_conv.dw_per_tap),
-        ("ccl_roots", ccl.ccl_roots), ("nms_keep", nms.nms_keep))}
+        ("ccl_roots", ccl.ccl_roots), ("nms_keep", nms.nms_keep),
+        ("segment_sum", segment.segment_sum))}
     for op, args, plain, wrapped, wrapper in _cases(name):
         assert op._qualname == f"fsf::{op._name}"
         report = torch.library.opcheck(op, args)

@@ -140,7 +140,8 @@ def test_train_descent_tiny_writes_the_jax_artifact(tmp_path):
     assert any(k.endswith("num_pos") for k in art["log"][0])
     for r in art["per_step"]:
         assert r["forward_ms"] > 0 and r["backward_ms"] > 0 and r["optimizer_ms"] > 0
-        assert set(r["launches"]) == {"gather_conv", "ccl_roots", "nms_keep", "dw_per_tap"}
+        assert set(r["launches"]) == {"gather_conv", "ccl_roots", "nms_keep", "dw_per_tap",
+                                      "segment_sum"}
         assert sum(r["launches"].values()) == 0          # CPU tensors: the plain versions
     assert art["device"] == "cpu" and art["card"] is None
     assert 1 <= art["slowest_step"]["step"] <= 3

@@ -40,7 +40,7 @@ from fullysparsefusion_tpu.models.fsd import SingleStageFSD as JFSD
 from fullysparsefusion_tpu.models.fsf import FSF as JFSF
 from fullysparsefusion_tpu_torch.cli import export_model as E
 from fullysparsefusion_tpu_torch.cli.serve_exported import request_dict
-from fullysparsefusion_tpu_torch.ops import sparse_conv
+from fullysparsefusion_tpu_torch.ops import segment, sparse_conv
 from fullysparsefusion_tpu_torch.weights import build_fsd, build_fsf, from_jax_variables
 from test_torch_ddp_port import torch_one_thread  # noqa: F401 (autouse)
 from test_torch_fsf import BF16_CHAIN_TOL, FAST_COMPILE, _Count, _numpy_variables
@@ -150,15 +150,18 @@ def check_second_seed(case):
 
 def check_ops_in_graph(case):
     """The program calls K1 as often as the eager forward calls its wrapper,
-    K2 once, and no other ``fsf::`` op (no decode: no K3; no gradient)."""
+    K2 once, the segment sum as often as the eager forward sums through a
+    ``SegmentInfo``, and no other ``fsf::`` op (no decode: no K3; no
+    gradient)."""
     ops = {}
     for node in case["program"].graph.nodes:
         if node.op == "call_function" and str(node.target).startswith("fsf."):
             ops[str(node.target)] = ops.get(str(node.target), 0) + 1
-    with _Count(sparse_conv, "gather_conv") as k1:
+    with _Count(sparse_conv, "gather_conv") as k1, _Count(segment.SegmentInfo, "sum") as sums:
         eager(case["model"], case["inputs"])
-    assert k1.n > 0
-    assert ops == {"fsf.gather_conv.default": k1.n, "fsf.ccl_roots.default": 1}
+    assert k1.n > 0 and sums.n > 0
+    assert ops == {"fsf.gather_conv.default": k1.n, "fsf.ccl_roots.default": 1,
+                   "fsf.segment_sum.default": sums.n}
 
 
 @pytest.fixture(scope="module")

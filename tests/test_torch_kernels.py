@@ -15,6 +15,8 @@ of the output's magnitude. ``dw_per_tap`` likewise sums exact bf16 products
 in f32, over up to n_out rows: 1e-4 of each tap's ``||d_w[k]||`` (and exactly
 0 for a tap nothing hits). K2 and K3 are bitwise, also past the sizes where
 their scratch leaves shared memory (K3 at N = 15,360, K2 at 50,000).
+``fsf::segment_sum`` is bitwise its plain version on the CPU: both add each
+segment's rows in ascending row order from 0.
 """
 import numpy as np
 import pytest
@@ -377,3 +379,36 @@ def test_nms_kernel_past_the_shared_memory_limit(cuda):
     got = nms.nms_keep(iou, order, vs.contiguous(), 0.5)
     assert torch.equal(got, nms.nms_keep_plain(iou, order, vs, 0.5))
     assert 0 < int(got.sum()) < int(vs.sum())
+
+
+# --- fsf::segment_sum ----------------------------------------------------------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("width,row_stride", [(1, 1), (3, 4), (4, 4), (6, 6), (27, 27),
+                                              (81, 81), (128, 128), (128, 130)])
+def test_segment_sum_kernel_matches_plain(cuda, width, row_stride):
+    """Bitwise the plain version on the CPU (each segment's rows added in
+    ascending row order from 0), twice the same: half the rows invalid, keys
+    past the capacity, segments of one row to thousands, rows read through
+    a stride (16-, 8- and 4-byte loads)."""
+    from fullysparsefusion_tpu_torch.ops import segment
+
+    g = torch.Generator().manual_seed(width + row_stride)
+    n, capacity = 20000, 900
+    keys = (torch.rand(n, generator=g) ** 3 * 1200).to(torch.int32)   # skewed sizes
+    valid = torch.rand(n, generator=g) < 0.5
+    wide = torch.randn(n, row_stride, generator=g)
+
+    def view(x):
+        return x[:, 0] if width == 1 else x[:, :width]
+
+    feat = view(wide)
+    seg = segment.unique_segments(keys.to(cuda), valid.to(cuda), capacity)
+    before = segment.segment_sum.launches
+    got = seg.sum(view(wide.to(cuda)))
+    again = segment.segment_sum(view(wide.to(cuda)), seg.seg_id, capacity)
+    torch.cuda.synchronize()
+    assert segment.segment_sum.launches - before == 2
+    ref = segment.segment_sum_plain(feat, seg.seg_id.cpu(), capacity)
+    assert torch.equal(got.cpu(), ref) and torch.equal(again.cpu(), ref)

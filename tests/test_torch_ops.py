@@ -64,6 +64,74 @@ def test_unique_segments_exact(capacity):
     eq(uk, ruk), eq(sv, rsv), eq(ns, rns)
 
 
+def _segment_rows(rng, width, n=4000):
+    """Rows of ``width`` f32 columns ([n] for width 1) over keys of which
+    about half are invalid: a trash run of ~2,000 rows."""
+    keys = rng.integers(0, 500, n).astype(np.int32)
+    valid = rng.random(n) < 0.5
+    feat = rng.normal(size=(n, width) if width > 1 else (n,)).astype(np.float32)
+    return keys, valid, feat
+
+
+@pytest.mark.parametrize("width", [1, 3, 4, 27, 128])
+def test_segment_sum_matches_jax(width):
+    """``fsf::segment_sum`` adds each segment's rows in ascending row order
+    from 0, as XLA's scatter-add on the CPU does: bitwise equal, past the
+    capacity (overflow into the trash row), with empty slots after the last
+    segment, and through bare ids with gaps (empty segments)."""
+    rng = np.random.default_rng(width)
+    keys, valid, feat = _segment_rows(rng, width)
+    for capacity in (150, 600):                   # ~410 distinct keys
+        seg = segment.unique_segments(t(keys), t(valid), capacity)
+        eq(seg.sum(t(feat)), jseg.segment_sum(jnp.asarray(feat), jnp.asarray(seg.seg_id.numpy()),
+                                              capacity))
+    capacity = 300
+    ids = rng.integers(0, capacity + 1, len(feat)) // 2 * 2    # odd ids empty
+    ref = np.zeros((capacity + 1,) + feat.shape[1:], np.float32)
+    np.add.at(ref, ids, feat)                     # unbuffered: in row order
+    eq(segment.segment_sum(t(feat), t(ids.astype(np.int32)), capacity), ref[:capacity])
+
+
+def test_segment_sum_gradient_is_the_index_put_gradient():
+    """The op's gradient is the gather of the output's gradient by segment
+    id, 0 on trash rows: bitwise what ``index_put_(accumulate=True)`` into
+    ``capacity + 1`` rows and a slice give."""
+    rng = np.random.default_rng(5)
+    keys, valid, feat = _segment_rows(rng, 27)
+    capacity = 150
+    seg = segment.unique_segments(t(keys), t(valid), capacity)
+    g = t(rng.normal(size=(capacity, 27)).astype(np.float32))
+
+    def grad(reduce):
+        x = t(feat).requires_grad_()
+        (reduce(x) * g).sum().backward()
+        return x.grad
+
+    def index_put(x):
+        out = x.new_zeros((capacity + 1, 27))
+        return out.index_put_((seg.seg_id.long(),), x, accumulate=True)[:capacity]
+
+    want = grad(index_put)
+    assert bool((want[seg.seg_id == capacity] == 0).all())
+    for reduce in (seg.sum, lambda x: segment.segment_sum(x, seg.seg_id, capacity)):
+        assert torch.equal(grad(reduce), want)
+
+
+def test_segment_mean_through_segment_info_is_the_id_form():
+    """``SegmentInfo.mean`` (the CSR ``unique_segments`` keeps) equals
+    ``segment_mean`` over the bare ids bitwise: on [N] and [N, C] rows and a
+    strided view of wider rows."""
+    rng = np.random.default_rng(6)
+    keys, valid, feat = _segment_rows(rng, 7)
+    capacity = 150
+    seg = segment.unique_segments(t(keys), t(valid), capacity)
+    rows = t(feat)
+    for x in (rows[:, 0].contiguous(), rows, rows[:, :3]):
+        want = segment.segment_mean(x, seg.seg_id, capacity)
+        eq(seg.mean(x), want)
+        eq(segment.segment_mean(x, seg.seg_id, capacity, counts=seg.counts), want)
+
+
 @pytest.mark.parametrize("capacity", [10, 200, 400])
 def test_masked_gather_exact(capacity):
     mask = np.random.default_rng(capacity).random(300) > 0.6
