@@ -8,7 +8,10 @@ with a short window, and prints the numbers compared; for each seed of
 ``--control-seeds`` it makes the same run with the control in the
 program's place: the reference in the precision one step below the
 configuration's (``reference/precision.py``). Everything runs in one
-process, one run after the other. Needs the cell's CUDA devices.
+process, one run after the other. Needs the cell's CUDA devices. The
+control, the witness and the faults below are context managers of the
+configuration's family (``benchmark/families/<family>.py``), entered
+around each run.
 
 The witness of a training cell's discrete decisions (PERF.md):
 ``--detection-from 0`` checks steps that detect, and ``--program-path``
@@ -34,102 +37,40 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 @contextlib.contextmanager
+def _variant(name: str, *args):
+    """The runs inside the block with the family's context manager ``name``
+    entered around each (``cell.Run.variants``)."""
+    from benchmark.harness import cell
+
+    saved = cell.Run.variants
+    cell.Run.variants = saved + ((name, *args),)
+    try:
+        yield
+    finally:
+        cell.Run.variants = saved
+
+
 def control():
     """The control in the program's place inside the block: the reference
     in the precision one step down, built as the program would be; the
     judge's own reference runs in the configuration's precision."""
-    from benchmark.harness import cell, sides
-    from benchmark.reference import precision
-
-    saved = (sides.program_model, sides.program_inputs, cell._judge_serve, cell._judge_train)
-    judge_serve, judge_train = saved[2], saved[3]
-
-    def lowered(cfg_file, state, device):
-        m = sides.reference_model(cfg_file, device)
-        m.load_state_dict(state, strict=True)
-        return precision.lower_linears(m).eval()
-
-    def judged(fn):
-        def run(*a, **k):
-            precision.LOW = False
-            return fn(*a, **k)
-        return run
-
-    sides.program_model, sides.program_inputs = lowered, sides.reference_inputs
-    cell._judge_serve, cell._judge_train = judged(judge_serve), judged(judge_train)
-    precision.LOW = True
-    try:
-        yield
-    finally:
-        sides.program_model, sides.program_inputs, cell._judge_serve, cell._judge_train = saved
-        precision.LOW = False
+    return _variant("control")
 
 
-def _plain_gather(reverse: bool):
-    def gather_conv(feats, rows, w, plan=None):
-        n_src, cin = feats.shape
-        f_z = torch.cat([feats, feats.new_zeros(1, cin)]).float()
-        wf = w.float()
-        out = torch.zeros(rows.shape[1], w.shape[2], dtype=torch.float32, device=feats.device)
-        taps = range(rows.shape[0])
-        for k in (reversed(taps) if reverse else taps):
-            out += f_z[rows[k].long()] @ wf[k]
-        return out
-
-    gather_conv.launches = 0
-    return gather_conv
-
-
-@contextlib.contextmanager
 def program_path(kind: str):
     """The program's K1 and dw_per_tap as ``kind`` says inside the block."""
-    if kind == "kernels":
-        yield
-        return
-    from fullysparsefusion_tpu_torch.ops import sparse_conv
-
-    saved = sparse_conv.gather_conv, sparse_conv.dw_per_tap
-
-    def dw_per_tap(feats, rows, g, plan=None):
-        return sparse_conv.dw_per_tap_plain(feats, rows, g)
-
-    dw_per_tap.launches = 0
-    sparse_conv.gather_conv = _plain_gather(kind == "plain_reversed")
-    sparse_conv.dw_per_tap = dw_per_tap
-    try:
-        yield
-    finally:
-        sparse_conv.gather_conv, sparse_conv.dw_per_tap = saved
+    return contextlib.nullcontext() if kind == "kernels" else _variant("program_path", kind)
 
 
-@contextlib.contextmanager
 def fault(kind: str):
     """The program's backward with fault ``kind`` inside the block."""
-    if kind == "none":
-        yield
-        return
-    from fullysparsefusion_tpu_torch.ops import sparse_conv
+    return contextlib.nullcontext() if kind == "none" else _variant("fault", kind)
 
-    fn = sparse_conv.GatherConvFunction
-    saved = sparse_conv.dw_per_tap, fn.backward
-    if kind == "dw_taps_reversed":
-        def dw_per_tap(*a, **k):
-            return saved[0](*a, **k).flip(0)
 
-        dw_per_tap.launches = 0
-        sparse_conv.dw_per_tap = dw_per_tap
-    elif kind == "dfeats_scaled":
-        def backward(ctx, g):
-            d_feats, *rest = saved[1](ctx, g)
-            return (None if d_feats is None else d_feats * 1.25, *rest)
-
-        fn.backward = staticmethod(backward)
-    else:
-        raise ValueError(f"unknown fault {kind!r}")
-    try:
-        yield
-    finally:
-        sparse_conv.dw_per_tap, fn.backward = saved[0], staticmethod(saved[1])
+def detection_from(step):
+    """The detection terms counted from ``step`` inside the block (None:
+    the configuration's step)."""
+    return contextlib.nullcontext() if step is None else _variant("detection_from", step)
 
 
 def main(argv=None) -> int:
@@ -153,11 +94,11 @@ def main(argv=None) -> int:
         return 3
     from benchmark.harness import cell
 
-    cell.Run.detection_from_override = args.detection_from
     for kind, seeds in (("program", args.seeds), ("control", args.control_seeds)):
         for seed in [int(s) for s in seeds.split(",") if s]:
             t0 = time.perf_counter()
-            with control() if kind == "control" else program_path(args.program_path), \
+            with detection_from(args.detection_from), \
+                    control() if kind == "control" else program_path(args.program_path), \
                     fault(args.fault):
                 res, readings = cell.measure(ROOT, args.workload, seed, args.seconds, False,
                                              "cuda", t0)

@@ -2,33 +2,56 @@
 check against the reference, and the result line.
 
 Serving (traffic ``mode`` ``serve``): a closed loop with one frame in
-flight. A frame runs from handing the program its points on the host to its
-detections on the host: ``FSF.forward`` + ``FSF.get_bboxes`` under
-``torch.inference_mode``, the detections copied back. Training (``train``):
-the program's ``parallel.train.train_step`` over a pool held on the device;
-the window ends with a device synchronise.
+flight; a unit is the family's ``serve_one``, from a frame's data where the
+mix keeps it to the answer on the host. Training (``train``): the family's
+train step over a pool held on the device; the window ends with a device
+synchronise.
 
 With ``trace`` on, the profiler covers ``traced_units`` units after the
 window's first, and CUDA-event spans record the model's phases in every
 unit; the work of the traced units is counted from the reference's pass
-over the same frames after the window."""
+over the same frames after the window.
+
+What is particular to a model lives in its family's file,
+``benchmark/families/<family>.py`` (:func:`manifest.family`), which gives:
+
+- ``MODES``: the traffic modes it runs, each with the mix keys it reads
+  beyond the harness's; ``check_cell(cfg_file, traffic)``: ValueError for a
+  cell it cannot run;
+- ``reference_model(cfg_file, device)``, ``program_model(cfg_file, state,
+  device)`` and ``make_state(cfg_file, seed, device)``: the two sides and
+  the weights of a seed, one ``state_dict`` for both;
+- ``make_frame(cfg_file, traffic, seed, i, objects, device)``: frame ``i``
+  of the pool, with ``index`` and ``objects``;
+- serving: ``serve_one(model, frame, device)`` (the timed unit),
+  ``failed(answer)``, ``serve_spans(spans, model)``, ``reference_answer(ref,
+  frame, device)``, ``served_numbers(want, got)`` (by the names of the
+  configuration's ``limits``) and ``work_count(ref, training=False)``
+  (``costs.WorkCount``'s interface);
+- training: ``program_batch(frame, device)``, ``program_train(run, model)``
+  (the optimizer, ``step(batch, s, mark=None)``), ``TRAIN_MARKS`` and
+  ``judge_train(run, pool, losses, first, change, traced, readings)``;
+- for ``calibrate.py``: context managers entered around a run
+  (:attr:`Run.variants`), such as ``control()``."""
 from __future__ import annotations
 
+import contextlib
 import gc
 import math
 import time
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
-from . import costs, judge, manifest, sides, trace as tracing, traffic as traffic_mod, weights
+from . import judge, manifest, trace as tracing, traffic as traffic_mod
 from .spans import Spans
 
+
 class Run:
-    # the step from which the detection terms count, over the configuration's
-    # ``train.enable_detection_step`` where set (calibrate.py's witness only)
-    detection_from_override: Optional[int] = None
+    # what calibrate.py puts in the program's place or plants in it: (name,
+    # *args) of a context manager of the family's, entered around the run
+    variants: Tuple[tuple, ...] = ()
 
     def __init__(self, root: str, cell_name: str, seed: int, seconds: float, trace: bool,
                  device: str, t_start: float, bench_dir: Optional[str] = None):
@@ -38,20 +61,17 @@ class Run:
         self.manifest = manifest.load(root)
         self.cell = manifest.cell(self.manifest, cell_name)
         self.cfg = manifest.config_file(self.manifest, self.cell, root)
-        self.traffic = traffic_mod.check(manifest.traffic_file(self.cell, self.bench_dir))
+        self.family = manifest.family(self.cfg, self.bench_dir)
+        traffic = manifest.traffic_file(self.cell, self.bench_dir)
+        self.traffic = traffic_mod.check(traffic, self.family.MODES.get(traffic.get("mode"), ()))
         self.mode = self.traffic["mode"]
+        if self.mode not in self.family.MODES:
+            raise ValueError(f"cell {cell_name!r}: family {self.cfg['family']!r} runs "
+                             f"{sorted(self.family.MODES)}, not {self.mode!r}")
+        self.family.check_cell(self.cfg, self.traffic)
         self.limits = self.cfg["limits"]
         self.checks: Dict[str, Dict[str, float]] = {}
         self.rng = np.random.default_rng([seed & traffic_mod.SEED_MASK, 7])
-        if self.mode == "train" and \
-                self.traffic["checked_steps"] > self.cfg["train"]["enable_detection_step"]:
-            raise ValueError("the checked steps have to lie in the segmentor-only warm-up "
-                             "(traffic checked_steps <= config train.enable_detection_step)")
-
-    def detection_from(self) -> int:
-        if self.detection_from_override is not None:
-            return self.detection_from_override
-        return self.cfg["train"]["enable_detection_step"]
 
     @property
     def cuda(self) -> bool:
@@ -75,10 +95,10 @@ class Run:
 
     def state(self):
         """The weights of this run's seed, made anew on the device."""
-        return weights.make_state(sides.reference_model(self.cfg, "meta"), self.seed, self.device)
+        return self.family.make_state(self.cfg, self.seed, self.device)
 
     def reference(self, state):
-        model = sides.reference_model(self.cfg, self.device)
+        model = self.family.reference_model(self.cfg, self.device)
         model.load_state_dict(state, strict=True)
         return model.eval()
 
@@ -135,14 +155,6 @@ def _window(run: Run, unit, stretch: Stretch, units_done: List[int]):
 
 # --- serving ---------------------------------------------------------------
 
-def _serve_one(model, frame, device):
-    pb, cam, _ = sides.program_inputs(frame, device)
-    with torch.inference_mode():
-        res = model(pb, cam, 1)
-        det = model.get_bboxes(res, 1)
-    return {k: getattr(det, k)[0].cpu() for k in ("boxes", "scores", "labels", "valid")}
-
-
 def _phases(run: Run, phases: Dict[str, float], name: str) -> None:
     """Set-up's phases on the host clock (after a synchronise), for the log."""
     run.sync()
@@ -150,24 +162,24 @@ def _phases(run: Run, phases: Dict[str, float], name: str) -> None:
 
 
 def serve(run: Run) -> Dict[str, Any]:
-    dev = run.device
+    fam, dev = run.family, run.device
     phases: Dict[str, float] = {}
     _phases(run, phases, "start")
-    pool = traffic_mod.make_pool(run.cfg, run.traffic, run.seed, dev)
+    pool = traffic_mod.make_pool(fam, run.cfg, run.traffic, run.seed, dev)
     _phases(run, phases, "pool")
-    model = sides.program_model(run.cfg, run.state(), dev)
+    model = fam.program_model(run.cfg, run.state(), dev)
     _phases(run, phases, "model")
-    _serve_one(model, pool[0], dev)
+    serve_one = fam.serve_one
+    serve_one(model, pool[0], dev)
     _phases(run, phases, "first_frame")
     for frame in pool[1:]:                      # every frame of the window, once
-        _serve_one(model, frame, dev)
+        serve_one(model, frame, dev)
     _phases(run, phases, "warm_up")
-    stretch = Stretch(run, lambda: _serve_one(model, pool[0], dev))
+    stretch = Stretch(run, lambda: serve_one(model, pool[0], dev))
     spans = None
     if run.trace and run.cuda:
         spans = Spans()
-        spans.module("seg_core", model.seg_core)
-        spans.method("foreground", model.fsd_branch, "extract_foreground")
+        fam.serve_spans(spans, model)
     run.sync()
     setup_s = time.perf_counter() - run.t_start
 
@@ -176,7 +188,7 @@ def serve(run: Run) -> Dict[str, Any]:
     def unit(i):
         frame = pool[i % len(pool)]
         ts = time.perf_counter()
-        answers.append(_serve_one(model, frame, dev))
+        answers.append(serve_one(model, frame, dev))
         latency.append(time.perf_counter() - ts)
         order.append(frame.index)
 
@@ -185,8 +197,7 @@ def serve(run: Run) -> Dict[str, Any]:
     readings = dict(mode="serve", window_s=window_s, units=done[0], latency_s=latency,
                     setup_s=setup_s, spans=spans.ms() if spans else {}, work=None,
                     setup_phases=phases)
-    failed = sum(1 for a in answers
-                 if not all(torch.isfinite(a[k]).all() for k in ("boxes", "scores")))
+    failed = sum(1 for a in answers if fam.failed(a))
     del model
     run.free()
     readings["trace"] = stretch.finish()
@@ -198,6 +209,7 @@ def _judge_serve(run: Run, pool, answers, order, traced: List[int], readings) ->
     """The reference serves a sample of the window's answers, drawn from the
     seed (the frame with the most objects always among them), and the
     frames of the traced stretch, whose work it counts."""
+    fam = run.family
     n = min(run.traffic["judged_units"], len(pool))
     most = max(range(len(pool)), key=lambda i: pool[i].objects)
     rest = [i for i in range(len(pool)) if i != most]
@@ -210,16 +222,14 @@ def _judge_serve(run: Run, pool, answers, order, traced: List[int], readings) ->
     ref = run.reference(run.state())
     works = {}
     for idx in sorted(set(at) | set(traced)):
-        wc = costs.WorkCount(ref) if idx in traced else None
-        pb, cam, _ = sides.reference_inputs(pool[idx], run.device)
-        with torch.inference_mode():
-            det = judge.as_dict(ref.get_bboxes(ref(pb, cam, 1), 1))
+        wc = fam.work_count(ref) if idx in traced else None
+        want = fam.reference_answer(ref, pool[idx], run.device)
         if wc is not None:
             works[idx] = wc.totals()
             wc.detach()
         if idx in at:
-            run.check(f"moved_share.frame{idx}", judge.moved_share(det, answers[at[idx]]),
-                      run.limits["moved_share"])
+            for name, value in fam.served_numbers(want, answers[at[idx]]).items():
+                run.check(f"{name}.frame{idx}", value, run.limits[name])
     if traced:
         readings["work"] = {k: float(np.mean([works[i][k] for i in traced]))
                             for k in works[traced[0]]}
@@ -229,36 +239,22 @@ def _judge_serve(run: Run, pool, answers, order, traced: List[int], readings) ->
 
 # --- training --------------------------------------------------------------
 
-def _optimizer(make, model, cfg):
-    t = cfg["train"]
-    return make(model, base_lr=t["base_lr"], total_steps=t["total_steps"],
-                weight_decay=t["weight_decay"], grad_clip_norm=t["grad_clip_norm"],
-                lr_mult_rules=t["lr_mult_rules"])
-
-
 def train(run: Run) -> Dict[str, Any]:
-    from fullysparsefusion_tpu_torch.parallel.train import Batch, make_optimizer, train_step
-    from fullysparsefusion_tpu_torch.train.hooks import RuntimeSchedule
-
-    dev = run.device
+    fam, dev = run.family, run.device
     phases: Dict[str, float] = {}
     _phases(run, phases, "start")
-    pool = traffic_mod.make_pool(run.cfg, run.traffic, run.seed, dev)
-    batches = []
-    for f in pool:
-        pb, cam, gt = sides.program_inputs(f, dev)
-        batches.append(Batch(pb, cam, gt, gt))
+    pool = traffic_mod.make_pool(fam, run.cfg, run.traffic, run.seed, dev)
+    batches = [fam.program_batch(f, dev) for f in pool]
     _phases(run, phases, "pool")
     state = run.state()
-    model = sides.program_model(run.cfg, state, dev)
+    model = fam.program_model(run.cfg, state, dev)
     _phases(run, phases, "model")
-    opt = _optimizer(make_optimizer, model, run.cfg)
-    sched = RuntimeSchedule(enable_detection_step=run.detection_from())
+    opt, train_step = fam.program_train(run, model)
     names = {id(p): n for n, p in model.named_parameters()}
     checked = run.traffic["checked_steps"]
     losses = []
     for s in range(checked):                    # the warm-up steps the reference follows
-        loss, terms, _ = train_step(model, opt, sched, batches[s % len(pool)], s)
+        loss, terms, _ = train_step(batches[s % len(pool)], s)
         losses.append(float(loss))
         if s == 0:
             first_grad = judge.adam_first_grads(opt, names)
@@ -269,19 +265,19 @@ def train(run: Run) -> Dict[str, Any]:
                   for n, p in model.named_parameters()}
     del state
     _phases(run, phases, "checked_steps")
-    for s in range(checked, len(pool)):         # every scene of the window, once, detecting
-        train_step(model, opt, sched, batches[s], s)
+    for s in range(checked, len(pool)):         # every scene of the window, once
+        train_step(batches[s], s)
     _phases(run, phases, "warm_up")
     base = len(pool)
 
     def step(i, mark=None):
-        return train_step(model, opt, sched, batches[(base + i) % len(pool)], base + i, mark)
+        return train_step(batches[(base + i) % len(pool)], base + i, mark)
 
     stretch = Stretch(run, lambda: None)
     spans = None
     if run.trace and run.cuda:
         spans = Spans()
-        mark = spans.marks({"forward": "forward", "backward": "backward"})
+        mark = spans.marks(fam.TRAIN_MARKS)
     run.sync()
     setup_s = time.perf_counter() - run.t_start
 
@@ -302,81 +298,13 @@ def train(run: Run) -> Dict[str, Any]:
     readings = dict(mode="train", window_s=window_s, units=done[0], latency_s=[],
                     setup_s=setup_s, spans=spans.ms() if spans else {}, work=None,
                     setup_phases=phases)
-    del model, opt, batches, last
+    del model, opt, train_step, batches, last
     run.free()
     readings["trace"] = stretch.finish()
     readings["first_terms"] = first_terms
-    _judge_train(run, pool, losses, (first_grad, first_grad_t), change, stretch.units(order),
-                 readings)
+    fam.judge_train(run, pool, losses, (first_grad, first_grad_t), change, stretch.units(order),
+                    readings)
     return dict(readings=readings, attempted=done[0], failed=failed, peak=peak)
-
-
-def _judge_train(run: Run, pool, losses, first, change, traced, readings) -> None:
-    """The reference follows the checked steps from the same weights on the
-    same scenes, on the same schedule; its passes over the traced units'
-    scenes count their work."""
-    from ..reference.hooks import RuntimeSchedule
-    from ..reference.train import Batch, make_optimizer, train_step
-
-    first_grad, first_grad_t = first
-    state = run.state()
-    ref = run.reference(state)
-    opt = _optimizer(make_optimizer, ref, run.cfg)
-    names = {id(p): n for n, p in ref.named_parameters()}
-    sched = RuntimeSchedule(enable_detection_step=run.detection_from())
-    ref_losses, works = [], {}
-    for s in range(len(losses)):
-        idx = s % len(pool)
-        pb, cam, gt = sides.reference_inputs(pool[idx], run.device)
-        wc = costs.WorkCount(ref, training=True) if idx in traced and idx not in works else None
-        loss, terms, _ = train_step(ref, opt, sched, Batch(pb, cam, gt, gt), s,
-                                    wc.mark if wc is not None else None)
-        ref_losses.append(float(loss))
-        if s == 0:
-            ref_terms = {k: float(v) for k, v in terms.items()}
-        if wc is not None:
-            works[idx] = wc.totals()
-            wc.detach()
-        if s == 0:
-            ref_grad = judge.adam_first_grads(opt, names)
-            grad_diff = judge.adam_first_grad_diffs(opt, names, first_grad_t)
-    with torch.no_grad():
-        ref_change = {n: float((p.double() - state[n].double()).norm())
-                      for n, p in ref.named_parameters()}
-    reached = judge.reached_leaves(ref_grad)
-    g = judge.leaf_gaps(ref_grad, first_grad, reached)
-    c = judge.leaf_gaps(ref_change, change, reached)
-    d = judge.leaf_gaps(ref_grad, first_grad, reached, diff=grad_diff)
-    got_terms = readings.pop("first_terms")
-    numbers = dict(
-        loss_gap=judge.loss_gap(ref_losses, losses), grad_leaf_gap=g[0][0],
-        change_leaf_gap=c[0][0], grad_diff_gap=d[0][0],
-        seg_loss_gap=judge.seg_loss_gap(ref_terms, got_terms),
-        grad_median_gap=judge.median([v for v, _ in g]),
-        change_median_gap=judge.median([v for v, _ in c]),
-        grad_diff_median=judge.median([v for v, _ in d]))
-    readings["not_compared"] = {}
-    for name, value in numbers.items():     # a number the configuration sets no limit for
-        if name in run.limits:              # is reported, not compared (PERF.md says why)
-            run.check(name, value, run.limits[name])
-        else:
-            readings["not_compared"][name] = value
-    readings["detail"] = dict(
-        reached_leaves=len(reached),
-        grad_worst=[[k, v] for v, k in g[:5]], change_worst=[[k, v] for v, k in c[:5]],
-        grad_diff_worst=[[k, v] for v, k in d[:5]],
-        losses=[ref_losses, losses],
-        first_terms={k: [ref_terms[k], got_terms.get(k)] for k in ref_terms
-                     if abs(ref_terms[k] - got_terms.get(k, 0.0)) > 1e-3 * max(abs(ref_terms[k]), 1e-6)},
-        seg_terms={k: [ref_terms[k], got_terms.get(k)] for k in judge.SEG_TERMS})
-    readings["leaves"] = dict(ref_grad=ref_grad, grad=first_grad, ref_change=ref_change,
-                              change=change, grad_diff=grad_diff)
-    counted = [i for i in traced if i in works]
-    if counted:
-        readings["work"] = {k: float(np.mean([works[i][k] for i in counted]))
-                            for k in works[counted[0]]}
-    del ref, opt, state
-    run.free()
 
 
 # --- the result --------------------------------------------------------------
@@ -410,7 +338,10 @@ def measure(root: str, cell_name: str, seed: int, seconds: float, trace: bool, d
             t_start: float, bench_dir: Optional[str] = None):
     """(the result line's object, the run's readings)."""
     run = Run(root, cell_name, seed, seconds, trace, device, t_start, bench_dir)
-    out = serve(run) if run.mode == "serve" else train(run)
+    with contextlib.ExitStack() as planted:
+        for name, *args in run.variants:
+            planted.enter_context(getattr(run.family, name)(*args))
+        out = serve(run) if run.mode == "serve" else train(run)
     return result(run, out), out["readings"]
 
 

@@ -1,10 +1,10 @@
 """A configuration file (``benchmark/configs/<name>.json``) as the dataclasses
 that the program and the reference take.
 
-The file's ``model`` object is ``dataclasses.asdict`` of the configuration:
-:func:`dataclass_from_dict` rebuilds it as any dataclass tree with the same
-field names (the program's ``FSFConfig`` or the reference's frozen copy),
-lists turned back into tuples."""
+A family whose file's ``model`` object is ``dataclasses.asdict`` of its
+configuration rebuilds it with :func:`dataclass_from_dict` as any dataclass
+tree with the same field names (the program's class or the reference's
+frozen copy), lists turned back into tuples."""
 from __future__ import annotations
 
 import dataclasses
@@ -38,16 +38,3 @@ def dataclass_from_dict(cls, d: Mapping[str, Any]):
             kw[name] = _tuples(v)
     return cls(**kw)
 
-
-def program_config(cfg_file: Mapping[str, Any]):
-    """The program's ``FSFConfig`` of a configuration file."""
-    from fullysparsefusion_tpu_torch.config import FSFConfig
-
-    return dataclass_from_dict(FSFConfig, cfg_file["model"])
-
-
-def reference_config(cfg_file: Mapping[str, Any]):
-    """The reference's ``FSFConfig`` of a configuration file."""
-    from ..reference.config import FSFConfig
-
-    return dataclass_from_dict(FSFConfig, cfg_file["model"])

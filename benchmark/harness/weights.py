@@ -1,58 +1,28 @@
 """Weights made on the device from the seed, in one draw.
 
-The distributions are the program's initialisation (``weights.init_parameters``):
-dense and sparse-conv weights truncated normal (±2σ) with variance
-1/fan_in, biases 0, norm scales 1 with statistics 0 / 1, and the
-enhancement MLP's last layer 0. All truncated normal values of a model come
-from one ``trunc_normal_`` call on a ``torch.Generator`` of the device and
-are cut into leaves, so the weights cost one kernel, not one per leaf. The
-same state is handed to the program and to the reference."""
+A family gives the layout: which leaves of its reference model are drawn
+truncated normal (±2σ, variance 1/fan_in), and which are 0 and 1. All
+truncated normal values of a model come from one ``trunc_normal_`` call on
+a ``torch.Generator`` of the device and are cut into leaves, so the weights
+cost one kernel, not one per leaf. The same state is handed to the program
+and to the reference."""
 from __future__ import annotations
 
 import math
-from typing import Dict
+from typing import Callable, Dict, List, Tuple
 
 import torch
 from torch import nn
 
-
-def _layout(model: nn.Module):
-    """(name, fan_in or None) of each truncated-normal leaf, and the leaves
-    that are 0, 1, in the order of ``model.named_modules()``."""
-    from ..reference.models.fsf import ZeroInitMLP
-    from ..reference.models.layers import LayerNorm, MaskedBatchNorm
-    from ..reference.models.sparse_unet import _ConvBlock
-
-    normal, zeros, ones = [], [], []
-    zero_last = set()
-    for name, m in model.named_modules():
-        if isinstance(m, ZeroInitMLP):
-            zero_last.add(f"{name}.Dense_{m.n - 1}")
-    for name, m in model.named_modules():
-        p = f"{name}." if name else ""
-        if isinstance(m, nn.Linear):
-            if name in zero_last:
-                zeros.append(p + "weight")
-            else:
-                normal.append((p + "weight", m.weight.shape[1]))
-            if m.bias is not None:
-                zeros.append(p + "bias")
-        elif isinstance(m, _ConvBlock):
-            normal.append((p + "w", m.w.shape[0] * m.w.shape[1]))
-        elif isinstance(m, (LayerNorm, MaskedBatchNorm)):
-            ones.append(p + "weight")
-            zeros.append(p + "bias")
-            if isinstance(m, MaskedBatchNorm):
-                zeros.append(p + "running_mean")
-                ones.append(p + "running_var")
-    return normal, zeros, ones
+# model -> ([(name, fan_in)] truncated normal, [name] of 0, [name] of 1), in a fixed order
+Layout = Callable[[nn.Module], Tuple[List[Tuple[str, int]], List[str], List[str]]]
 
 
-def make_state(model: nn.Module, seed: int, device) -> Dict[str, torch.Tensor]:
-    """A full ``state_dict`` for ``model`` (the reference's FSF, whose names
-    the program's shares) on ``device``, drawn from ``seed``."""
+def make_state(model: nn.Module, seed: int, device, layout: Layout) -> Dict[str, torch.Tensor]:
+    """A full ``state_dict`` for ``model`` (the reference's, whose names the
+    program's shares) on ``device``, drawn from ``seed`` by ``layout``."""
     shapes = {k: v.shape for k, v in model.state_dict().items()}
-    normal, zeros, ones = _layout(model)
+    normal, zeros, ones = layout(model)
     total = sum(math.prod(shapes[n]) for n, _ in normal)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed & ((1 << 63) - 1))

@@ -1,14 +1,19 @@
 """The benchmark's frozen copies: the scene and camera generators (checksums
 of their seed-0 arrays, pinned when they were copied from the program), the
 device painter against the NumPy generator, the traffic's object counts,
-and the cost functions on rulebooks counted by hand."""
+and the cost functions on rulebooks counted by hand. And what a run reads,
+pinned before the model families moved out of the harness: the tiny
+configuration's weights and frames of one seed, and the numbers that the
+tiny cells compare."""
 import hashlib
+import time
 
 import numpy as np
 import pytest
 import torch
 
-from benchmark.harness import costs, scenes, traffic
+from benchmark.harness import cell as cells, costs, manifest, scenes, traffic
+from benchmark.tests import tiny
 
 
 def digest(arrays) -> str:
@@ -83,3 +88,56 @@ def test_bound_takes_the_larger_of_operations_and_bytes():
     assert costs.bound_s(989e12, 1.0) == pytest.approx(1.0)
     assert costs.bound_s(1.0, 3.35e12) == pytest.approx(1.0)
     assert costs.bound_s(2 * 989e12, 3.35e12) == pytest.approx(2.0)
+
+
+# pinned at the tree before benchmark/families/ (the harness's own sides,
+# weights and traffic modules), on one CPU thread
+PIN_SEED = 2**31 + 11
+PINNED_WEIGHTS = "4b30ffbdd3561fdb"
+PINNED_FRAMES = "78d8575ce194f4bc"
+PINNED_CHECKS = {
+    "tiny.stream": {f"moved_share.frame{i}": {"value": 0.0, "limit": 0.02} for i in range(3)},
+    "tiny.train": {"grad_leaf_gap": {"value": 0.0, "limit": 0.1},
+                   "change_leaf_gap": {"value": 0.0, "limit": 0.4},
+                   "grad_diff_gap": {"value": 0.0, "limit": 0.2},
+                   "seg_loss_gap": {"value": 0.0, "limit": 0.0005}},
+}
+PINNED_LOSSES = [25.210481643676758, 28.979591369628906, 32.578521728515625]
+
+
+def named_digest(named) -> str:
+    m = hashlib.sha256()
+    for k, t in named:
+        a = torch.as_tensor(t).contiguous()
+        m.update(k.encode())
+        m.update(str(a.dtype).encode())
+        m.update(str(tuple(a.shape)).encode())
+        m.update(a.numpy().tobytes())
+    return m.hexdigest()[:16]
+
+
+def test_tiny_weights_and_frames_are_pinned():
+    cfg = tiny.tiny_config()
+    fam = manifest.family(cfg)
+    assert named_digest(sorted(fam.make_state(cfg, PIN_SEED, "cpu").items())) == PINNED_WEIGHTS
+    pool = traffic.make_pool(fam, cfg, dict(pool=3, objects=[3, 5], points_on="host"), PIN_SEED,
+                             "cpu")
+    named = []
+    for f in pool:
+        named += [(f"{f.index}.{k}", getattr(f, k)) for k in ("points", "batch_idx", "valid")]
+        named += [(f"{f.index}.gt.{k}", v) for k, v in sorted(f.gt.items())]
+        named += [(f"{f.index}.cam.{k}", f.cam[k]) for k in ("masks", "anno", "lidar2img")]
+    assert [f.objects for f in pool] == [3, 5, 4]
+    assert named_digest(named) == PINNED_FRAMES
+
+
+@pytest.mark.parametrize("cell", sorted(PINNED_CHECKS))
+def test_tiny_checks_are_pinned(tmp_path, cell):
+    root = tiny.make_checkout(str(tmp_path))
+    # a window long enough that every frame of the pool is served, and so judged
+    res, readings = cells.measure(root, cell, PIN_SEED, 3.0, False, "cpu", time.perf_counter(),
+                                  root + "/benchmark")
+    assert res["attempted"] >= 3
+    assert res["checks"] == PINNED_CHECKS[cell]
+    if cell == "tiny.train":
+        assert readings["detail"]["losses"] == [PINNED_LOSSES, PINNED_LOSSES]

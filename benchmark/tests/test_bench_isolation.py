@@ -19,12 +19,12 @@ def loaded_after(imports: str):
 def test_harness_and_reference_load_no_jax():
     top = loaded_after(
         "import benchmark.run, benchmark.calibrate\n"
-        "from benchmark.harness import cell, costs, judge, manifest, readers, scenes, sides, "
+        "from benchmark.harness import cell, configs, costs, judge, manifest, readers, scenes, "
         "spans, trace, traffic, weights\n"
         "from benchmark.reference.models import fsf\nfrom benchmark.reference import train\n"
-        "from benchmark.harness import configs\n"
-        "import json\nconfigs.program_config(json.load(open("
-        f"{os.path.join(ROOT, 'benchmark', 'configs', 'fsf_nusc.json')!r})))")
+        "import json\ncfg = json.load(open("
+        f"{os.path.join(ROOT, 'benchmark', 'configs', 'fsf_nusc.json')!r}))\n"
+        "manifest.family(cfg).program_config(cfg)")
     assert not top & {"jax", "jaxlib", "flax", "fullysparsefusion_tpu"}
     assert "fullysparsefusion_tpu_torch" in top          # the program itself, by design
 

@@ -11,17 +11,19 @@ import math
 
 import torch
 
-from benchmark.harness import judge, sides, traffic, weights
+from benchmark.harness import judge, manifest, traffic
 from benchmark.tests import tiny
 
 SEED = 2**31 + 77
+# the tiny configuration's family, which builds both sides and their inputs
+sides = manifest.family(tiny.tiny_config())
 
 
 def setup(points_on):
     cfg = tiny.tiny_config()
     t = dict(pool=2, objects=[3, 5], points_on=points_on)
-    pool = traffic.make_pool(cfg, t, SEED, "cpu")
-    state = weights.make_state(sides.reference_model(cfg, "meta"), SEED, "cpu")
+    pool = traffic.make_pool(sides, cfg, t, SEED, "cpu")
+    state = sides.make_state(cfg, SEED, "cpu")
     ref = sides.reference_model(cfg, "cpu")
     ref.load_state_dict(state, strict=True)
     return cfg, pool, state, ref.eval(), sides.program_model(cfg, state, "cpu")

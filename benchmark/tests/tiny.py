@@ -24,7 +24,7 @@ def tiny_config() -> dict:
     from benchmark.reference.config import tiny_fsf_config
 
     return json.loads(json.dumps(dict(
-        name="tiny", model=dataclasses.asdict(tiny_fsf_config()),
+        name="tiny", family="fsf", model=dataclasses.asdict(tiny_fsf_config()),
         scene=dict(generator="lidar_scene", point_dim=5, extent=10.0, n_rings=4,
                    pts_per_ring=300, n_walls=2, sweeps=2),
         cameras=dict(num_cams=2, img_h=64, img_w=96, max_anno=32, fx=40.0),
