@@ -2547,8 +2547,9 @@ def htc_check_kernels(model, images) -> dict:
     shapes = {}
     for i, call in enumerate(calls["nms_keep"]):
         c, n = call[1].shape
-        role = "rpn" if i % HTC_NMS_PER_CAMERA == 0 else "classes"
-        res = replay_nms_keep(call, "htc_kernel_calls", camera=i // HTC_NMS_PER_CAMERA, role=role)
+        # every camera's RPN call (one class) comes before the class NMS calls
+        role, camera = ("rpn", i) if i < HTC_CAMS else ("classes", i - HTC_CAMS)
+        res = replay_nms_keep(call, "htc_kernel_calls", camera=camera, role=role)
         shapes.setdefault(f"C{c}_N{n}", []).append(res)
     per_shape = {}
     for key, rs in shapes.items():

@@ -13,9 +13,15 @@ from the tool's PNGs: ``[cams, H, W, classes]`` uint8 instance ids and the
 ``[max_anno, 9]`` anno table, which ``data/masks.py::pack_mask_scores``
 packs for FSF. ``data/masks.py::save_sample`` writes them as the tool's
 PNGs, one per :func:`plane_keys` pair (``cli/generate_masks.py``).
+
+The model runs in f32 with TF32 off (:func:`run_htc`), the precision every
+HTC check holds it to. Inside ``utils.profiling.tracing()`` the tool
+records the spans ``upload`` (the padded images to the card), ``paste`` and
+``paint``, and the counters ``masks_pasted`` and ``planes_painted``.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import List, Sequence, Tuple
 
@@ -24,6 +30,7 @@ import torch
 
 from .data.masks import reorg_anno
 from .models.htc import HTC, NUIM_CLASSES, Detections
+from .utils.profiling import count, span
 
 # standard nuScenes detection class order
 NUSC_CLASSES = (
@@ -89,12 +96,29 @@ def pad_images(images: np.ndarray) -> np.ndarray:
     return pad
 
 
+@contextlib.contextmanager
+def f32_without_tf32():
+    """cuDNN's convolutions and cuBLAS's matmuls in f32, not TF32, inside
+    the block; both flags as they were after it (cuDNN's other settings
+    untouched)."""
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+
+
 @torch.inference_mode()
 def run_htc(model: HTC, images: np.ndarray) -> List[Detections]:
     """The device work: one sample's padded cameras through ``model`` as
-    one batch → per-camera ``Detections`` on the model's device."""
+    one batch, in f32 with TF32 off → per-camera ``Detections`` on the
+    model's device."""
     dev = next(model.parameters()).device
-    return model(torch.from_numpy(pad_images(images)).to(dev))
+    with f32_without_tf32():
+        with span("upload"):
+            x = torch.from_numpy(pad_images(images)).to(dev)
+        return model(x)
 
 
 def paste_detections(dets: Sequence[Detections], img_hw: Tuple[int, int],
@@ -106,20 +130,22 @@ def paste_detections(dets: Sequence[Detections], img_hw: Tuple[int, int],
     (row, column)."""
     h, w = img_hw
     out = []
-    for cam_id, det in enumerate(dets):
-        boxes, scores, labels, probs, valid = (t.cpu().numpy() for t in det)
-        for j in range(len(scores)):
-            if not valid[j] or scores[j] < score_thr:
-                continue
-            x1, y1, x2, y2 = boxes[j]
-            bw = max(int(round(x2 - x1)), 1)
-            bh = max(int(round(y2 - y1)), 1)
-            mbox = resize_bilinear_u8((probs[j] * 255).astype(np.uint8), bw, bh) > 127
-            yy, xx = int(round(y1)), int(round(x1))
-            out.append(dict(
-                cam_id=cam_id, category=NUIM_TO_NUSC[int(labels[j])], score=float(scores[j]),
-                bbox=[float(v) for v in boxes[j]],
-                mask=mbox[: max(0, h - yy), : max(0, w - xx)], offset=(yy, xx)))
+    with span("paste"):
+        for cam_id, det in enumerate(dets):
+            boxes, scores, labels, probs, valid = (t.cpu().numpy() for t in det)
+            for j in range(len(scores)):
+                if not valid[j] or scores[j] < score_thr:
+                    continue
+                x1, y1, x2, y2 = boxes[j]
+                bw = max(int(round(x2 - x1)), 1)
+                bh = max(int(round(y2 - y1)), 1)
+                mbox = resize_bilinear_u8((probs[j] * 255).astype(np.uint8), bw, bh) > 127
+                yy, xx = int(round(y1)), int(round(x1))
+                out.append(dict(
+                    cam_id=cam_id, category=NUIM_TO_NUSC[int(labels[j])],
+                    score=float(scores[j]), bbox=[float(v) for v in boxes[j]],
+                    mask=mbox[: max(0, h - yy), : max(0, w - xx)], offset=(yy, xx)))
+        count("masks_pasted", len(out))
     return out
 
 
@@ -129,21 +155,25 @@ def paint_sample(dets: Sequence[dict], num_cams: int, num_classes: int,
     rows): the top ``max_anno`` by score (stable), anno row = rank, painted
     in ascending score so that higher scores overwrite, pixel = row + 1."""
     h, w = img_hw
-    score = [d["score"] for d in dets]
-    top = sorted(range(len(dets)), key=lambda i: -score[i])[:max_anno]
-    ascending = sorted(top, key=lambda i: score[i])
-    rows = sorted(ascending, key=lambda i: -score[i])
-    annos = [dict(bbox=[float(x) for x in dets[i]["bbox"]], score=float(score[i]),
-                  category=int(dets[i]["category"]), cam_id=int(dets[i]["cam_id"]), obj_id=row)
-             for row, i in enumerate(rows)]
-    row_of = {i: row for row, i in enumerate(rows)}
-    planes = np.zeros((num_cams, h, w, num_classes), np.uint8)
-    for i in ascending:
-        d = dets[i]
-        (yy, xx), m = d["offset"], d["mask"]
-        region = planes[int(d["cam_id"]), yy:yy + m.shape[0], xx:xx + m.shape[1],
-                        int(d["category"])]
-        region[m] = row_of[i] + 1
+    with span("paint"):
+        score = [d["score"] for d in dets]
+        top = sorted(range(len(dets)), key=lambda i: -score[i])[:max_anno]
+        ascending = sorted(top, key=lambda i: score[i])
+        rows = sorted(ascending, key=lambda i: -score[i])
+        annos = [dict(bbox=[float(x) for x in dets[i]["bbox"]], score=float(score[i]),
+                      category=int(dets[i]["category"]), cam_id=int(dets[i]["cam_id"]),
+                      obj_id=row)
+                 for row, i in enumerate(rows)]
+        row_of = {i: row for row, i in enumerate(rows)}
+        planes = np.zeros((num_cams, h, w, num_classes), np.uint8)
+        for i in ascending:
+            d = dets[i]
+            (yy, xx), m = d["offset"], d["mask"]
+            region = planes[int(d["cam_id"]), yy:yy + m.shape[0], xx:xx + m.shape[1],
+                            int(d["category"])]
+            region[m] = row_of[i] + 1
+        count("planes_painted", len({(int(dets[i]["cam_id"]), int(dets[i]["category"]))
+                                     for i in ascending}))
     return planes, annos
 
 

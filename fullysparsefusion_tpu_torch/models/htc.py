@@ -17,6 +17,11 @@ RPN's over its ≤ 5 · ``rpn_pre_nms`` proposals with one class, and the
 detections' with one class per object class over the shared box IoU.
 Every top-k is a stable descending sort: ``lax.top_k`` keeps the lower
 index first among ties, and ties are certain (suppressed rows score −1).
+
+Inside ``utils.profiling.tracing()`` the forward records the spans
+``backbone`` (⊃ ``dcn``, each deformable conv), ``fpn``, ``rpn`` (⊃
+``proposals``, one an image), ``semantic``, then per image ``bbox_stages``,
+``class_nms`` and ``mask_stages``.
 """
 from __future__ import annotations
 
@@ -30,6 +35,7 @@ from ..ops.dcn import deform_conv2d
 from ..ops.geometry import axis_aligned_iou_2d
 from ..ops import nms
 from ..ops.roi_align import multilevel_roi_align, roi_align
+from ..utils.profiling import span
 
 # ImageNet / mmdet normalization (RGB)
 IMG_MEAN = (123.675, 116.28, 103.53)
@@ -70,8 +76,9 @@ class DeformConvBlock(nn.Module):
         self.weight = nn.Parameter(torch.empty(features, cin // groups, 3, 3))
 
     def forward(self, x):
-        return deform_conv2d(x, self.conv_offset(x), self.weight, None, self.stride, 1,
-                             groups=self.groups)
+        with span("dcn"):
+            return deform_conv2d(x, self.conv_offset(x), self.weight, None, self.stride, 1,
+                                 groups=self.groups)
 
 
 class Bottleneck(nn.Module):
@@ -396,36 +403,41 @@ class HTC(nn.Module):
             logits.append(lg)
         return logits
 
-    def image_features(self, images):
-        """(C2–C5, P2–P6, RPN class and box outputs per level, semantic
-        logits and embedding), all NCHW."""
-        cs = self.backbone(self.normalize(images))
-        pyramid = self.neck(cs)
-        cls_lvls, reg_lvls = self.rpn_head(pyramid)
-        sem_logits, sem_embed = self.semantic_head(pyramid)
-        return cs, pyramid, cls_lvls, reg_lvls, sem_logits, sem_embed
-
     def forward(self, images: torch.Tensor) -> List[Detections]:
         """images [N, H, W, 3] uint8 / float RGB → per-image ``Detections``."""
         n, ih, iw = images.shape[:3]
-        _, pyramid, cls_lvls, reg_lvls, _, sem_embed = self.image_features(images)
-        anchors = [level_anchors(s, *c.shape[2:], device=c.device)
-                   for s, c in zip(RPN_STRIDES, cls_lvls)]
+        with span("backbone"):
+            cs = self.backbone(self.normalize(images))
+        with span("fpn"):
+            pyramid = self.neck(cs)
+        with span("rpn"):
+            cls_lvls, reg_lvls = self.rpn_head(pyramid)
+            anchors = [level_anchors(s, *c.shape[2:], device=c.device)
+                       for s, c in zip(RPN_STRIDES, cls_lvls)]
+            proposals = []
+            for b in range(n):
+                with span("proposals"):
+                    proposals.append(self._proposals([c[b] for c in cls_lvls],
+                                                     [r[b] for r in reg_lvls], anchors, (ih, iw)))
+        with span("semantic"):
+            _, sem_embed = self.semantic_head(pyramid)
         out = []
-        for b in range(n):
+        for b, (rois, rvalid) in enumerate(proposals):
             pyr_b = [p[b].permute(1, 2, 0) for p in pyramid]
             sem_b = sem_embed[b].permute(1, 2, 0)
-            rois, rvalid = self._proposals([c[b] for c in cls_lvls], [r[b] for r in reg_lvls],
-                                           anchors, (ih, iw))
-            ms_scores = []
-            for si in range(3):
-                cls, reg = self.bbox_head(si)(self.roi_feats(pyr_b, sem_b, rois, rvalid, 7))
-                ms_scores.append(torch.softmax(cls, -1))
-                rois = delta_decode(rois, reg, self.stage_stds[si], (ih, iw))
-            scores = (ms_scores[0] + ms_scores[1] + ms_scores[2]) / 3.0
-            dets = self._multiclass_nms(rois, scores, rvalid)
-            lg = self.mask_logits(self.roi_feats(pyr_b, sem_b, dets.boxes, dets.valid, 14))
-            probs = torch.sigmoid((lg[0] + lg[1] + lg[2]) / 3.0)        # [D, C, 28, 28]
-            masks = probs[torch.arange(probs.shape[0], device=probs.device), dets.labels.long()]
+            with span("bbox_stages"):
+                ms_scores = []
+                for si in range(3):
+                    cls, reg = self.bbox_head(si)(self.roi_feats(pyr_b, sem_b, rois, rvalid, 7))
+                    ms_scores.append(torch.softmax(cls, -1))
+                    rois = delta_decode(rois, reg, self.stage_stds[si], (ih, iw))
+                scores = (ms_scores[0] + ms_scores[1] + ms_scores[2]) / 3.0
+            with span("class_nms"):
+                dets = self._multiclass_nms(rois, scores, rvalid)
+            with span("mask_stages"):
+                lg = self.mask_logits(self.roi_feats(pyr_b, sem_b, dets.boxes, dets.valid, 14))
+                probs = torch.sigmoid((lg[0] + lg[1] + lg[2]) / 3.0)    # [D, C, 28, 28]
+                masks = probs[torch.arange(probs.shape[0], device=probs.device),
+                              dets.labels.long()]
             out.append(dets._replace(masks=masks))
         return out

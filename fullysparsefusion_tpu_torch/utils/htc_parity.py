@@ -42,7 +42,10 @@ def dump_torch_activations(model, images: torch.Tensor,
     """The port's HTC activation dict. ``images`` [1, H, W, 3] RGB 0–255;
     ``rois`` [P, 4] xyxy image px on the model's device (without them only
     the image-level taps)."""
-    cs, pyramid, cls_lvls, reg_lvls, sem_logits, sem_embed = model.image_features(images)
+    cs = model.backbone(model.normalize(images))
+    pyramid = model.neck(cs)
+    cls_lvls, reg_lvls = model.rpn_head(pyramid)
+    sem_logits, sem_embed = model.semantic_head(pyramid)
     acts: Dict[str, np.ndarray] = {}
     for i, c in enumerate(cs):
         acts[f"backbone.c{i + 2}"] = _nhwc(c)

@@ -12,6 +12,10 @@ nothing else. Inside ``with tracing() as tr:`` each span
 - reads ``time.perf_counter_ns()`` at both ends;
 - keeps its parent, the innermost span open when it opened.
 
+:func:`count` records a number the host already holds (``count("masks_pasted",
+n)``) beside the innermost open span, inside :func:`tracing` only; it never
+reads the card.
+
 Spans stay in memory; :meth:`Tracer.summary` synchronises once, after the
 work, and gives each name's calls. :func:`device_trace` records the host and
 the card with ``torch.profiler`` inside :func:`tracing`, so its Chrome trace
@@ -23,7 +27,7 @@ from __future__ import annotations
 import contextlib
 import os
 import time
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -38,6 +42,14 @@ def span(name: str):
     if tr is None:
         return _NULL
     return _Span(tr, name)
+
+
+def count(name: str, value: float) -> None:
+    """Record ``value`` under ``name`` beside the innermost open span (inside
+    :func:`tracing`; a no-op outside it)."""
+    tr = _active
+    if tr is not None:
+        tr.counts.append((tr.open[-1].name if tr.open else None, name, value))
 
 
 class _Span:
@@ -82,13 +94,16 @@ class Tracer:
         self.cuda = cuda
         self.spans: List[_Span] = []
         self.open: List[_Span] = []
+        # (innermost open span's name or None, counter name, value), in order
+        self.counts: List[Tuple[Optional[str], str, float]] = []
 
     def summary(self) -> Dict[str, Dict]:
         """Per span name, in the order of its first call: ``parent`` (the
         first call's parent's name, or None), ``device_ms`` (CUDA events;
         empty without CUDA), ``host_ms`` and ``self_ms`` (host time less
-        what child spans cover), one entry per finished call. Synchronises
-        the card once."""
+        what child spans cover), one entry per finished call, and ``counts``
+        (each :func:`count` name recorded inside the span: its values).
+        Synchronises the card once."""
         if self.cuda:
             torch.cuda.synchronize()
         out: Dict[str, Dict] = {}
@@ -96,11 +111,14 @@ class Tracer:
             if not hasattr(s, "t1"):
                 continue
             e = out.setdefault(s.name, dict(parent=s.parent.name if s.parent else None,
-                                            device_ms=[], host_ms=[], self_ms=[]))
+                                            device_ms=[], host_ms=[], self_ms=[], counts={}))
             if s.events is not None:
                 e["device_ms"].append(s.events[0].elapsed_time(s.events[1]))
             e["host_ms"].append((s.t1 - s.t0) * 1e-6)
             e["self_ms"].append((s.t1 - s.t0 - s.child_ns) * 1e-6)
+        for span_name, name, value in self.counts:
+            if span_name in out:
+                out[span_name]["counts"].setdefault(name, []).append(value)
         return out
 
 

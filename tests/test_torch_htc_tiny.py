@@ -56,7 +56,8 @@ def test_tiny_htc_forward_matches_jax(tiny, image):
 def test_tiny_htc_runs_both_nms_calls_through_nms_keep(tiny, monkeypatch):
     """Per image: the RPN's call (one class over the five levels' 16 +
     16 + 16 + 16 + 16 proposals) and the detections' (ten classes over the
-    16 proposals, one call)."""
+    16 proposals, one call); every image's proposals come first, inside the
+    forward's ``rpn`` span."""
     model = tiny[1]["random"]
     shapes = []
     orig = tnms.nms_keep
@@ -68,7 +69,7 @@ def test_tiny_htc_runs_both_nms_calls_through_nms_keep(tiny, monkeypatch):
     monkeypatch.setattr(tnms, "nms_keep", recorder)
     with torch.inference_mode():
         model(t(np.concatenate([_images()["random"]] * 2)))
-    assert shapes == [((1, 80), 0.7), ((10, 16), 0.5)] * 2
+    assert shapes == [((1, 80), 0.7)] * 2 + [((10, 16), 0.5)] * 2
 
 
 def test_tiny_tree_loads_strict(tiny):

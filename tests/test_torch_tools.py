@@ -121,6 +121,43 @@ def test_fsf_serving_spans_in_order_and_outputs_unchanged(tiny_fsf):
     assert all(len(v["host_ms"]) == 1 for v in summary.values()) and top > 0
 
 
+HTC_SPANS = ([("upload", None), ("backbone", None)] + [("dcn", "backbone")] * 3
+             + [("fpn", None), ("rpn", None)] + [("proposals", "rpn")] * 2 + [("semantic", None)]
+             + [("bbox_stages", None), ("class_nms", None), ("mask_stages", None)] * 2
+             + [("paste", None), ("paint", None)])
+
+
+def test_htc_sample_masks_spans_and_counters(monkeypatch):
+    """The tiny HTC (three DCN blocks, two cameras) through ``sample_masks``:
+    with tracing off no span is made; with it on, the spans nest as listed
+    and the counters hold the pasted masks and the painted planes; the
+    planes and anno the same either way."""
+    from fullysparsefusion_tpu_torch import generate_masks as gm
+    from fullysparsefusion_tpu_torch.weights import build_htc
+    from test_torch_htc_reference import TINY, tiny_images
+
+    model = build_htc(seed=0, device="cpu", **TINY)
+    images = tiny_images()
+
+    class NoSpan:
+        def __init__(self, *a):
+            raise AssertionError("a span was made with tracing off")
+
+    with monkeypatch.context() as m:
+        m.setattr(profiling, "_Span", NoSpan)
+        off = gm.sample_masks(model, images, score_thr=0.0)
+    with profiling.tracing() as tr:
+        on = gm.sample_masks(model, images, score_thr=0.0)
+    for a, b in zip(off, on):
+        np.testing.assert_array_equal(a, b)
+    assert [(s.name, s.parent and s.parent.name) for s in tr.spans] == HTC_SPANS
+    rows = on[1][on[1][:, 8] > 0]
+    planes = {(int(r[6]), int(r[5])) for r in rows}
+    assert tr.counts == [("paste", "masks_pasted", len(rows)),
+                         ("paint", "planes_painted", len(planes))]
+    assert tr.summary()["paste"]["counts"] == {"masks_pasted": [len(rows)]}
+
+
 def test_train_step_spans_and_marks(tiny_fsf):
     from fullysparsefusion_tpu_torch.parallel.train import Batch, make_optimizer, train_step
     from fullysparsefusion_tpu_torch.train.hooks import RuntimeSchedule
